@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Serial vs parallel Monte Carlo of PSK over AWGN.
 
-TPU-native counterpart of the reference's
+JAX-native counterpart of the reference's
 ``apps/awgn_modulators/simulate_parallel_psk.py``, which runs the same
 simulation once with ``simulate()`` and once with
 ``simulate_in_parallel()`` on an ipyparallel cluster to showcase the two

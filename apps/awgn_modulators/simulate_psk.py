@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Monte Carlo BER/SER simulation of M-PSK over AWGN.
 
-TPU-native counterpart of the reference's
+JAX-native counterpart of the reference's
 ``apps/awgn_modulators/simulate_psk.py``: the per-repetition chain
 (modulate -> AWGN -> demodulate -> count errors) is expressed as a jitted
 kernel vmapped over repetitions; the SimulationRunner sweeps SNR and

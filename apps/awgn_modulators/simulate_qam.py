@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """M-QAM over AWGN — minimal runner subclass.
 
-TPU-native counterpart of the reference's
+JAX-native counterpart of the reference's
 ``apps/awgn_modulators/simulate_qam.py``: only the modulator (and the SNR
 grid) change from the PSK runner.
 

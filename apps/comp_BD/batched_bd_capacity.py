@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CoMP Block Diagonalization sum-capacity sweep — fully on device.
 
-TPU-native extension of the reference's ``apps/comp_BD`` family: where
+Device-native extension of the reference's ``apps/comp_BD`` family: where
 the reference (and the host ``EnhancedBD`` app here) computes one numpy
 SVD chain per Monte Carlo repetition, this app runs the whole BD solve —
 null-space projection, stream alignment, water-filling power loading and
@@ -10,13 +10,13 @@ the capacity reduction — on device, with TWO engines:
 * ``BatchedBDCapacityRunner`` — the general XLA chain
   (:func:`pyphysim_tpu.comm.bd_precoders_batched`) vmapped through the
   runner's batch path; any (K, Nr_u, Nt) geometry.
-* ``BDKernelCapacityRunner`` — the VMEM-resident Pallas kernel
+* ``BDKernelCapacityRunner`` — the register-resident Pallas kernel
   (:class:`pyphysim_tpu.ops.bd_pallas.MonteCarloBD`) through the
   runner's BULK path: the kernel owns its repetition axis and draws the
-  channels from the TPU hardware PRNG (~5.8e8 solves/s on one v5e chip
-  at the (3,2) point); the geometry menu (square, K >= 2, Nr_u in
-  {1, 2}) selects the plane program. On CPU the identical kernel math
-  runs under the Pallas interpreter with host-supplied bits.
+  channels from its in-kernel counter-based generator; the geometry
+  menu (square, K >= 2, Nr_u in {1, 2}) selects the plane program. The
+  kernel is compiled for the GPU; ``interpret=True`` runs it under the
+  Pallas interpreter on any backend.
 
 Both sweep the per-BS power (in dB) and report the mean BD sum
 capacity per variation.
@@ -28,7 +28,6 @@ import sys
 
 sys.path.insert(0, ".")
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -81,18 +80,18 @@ class BatchedBDCapacityRunner(SimulationRunner):
 
 
 class BDKernelCapacityRunner(SimulationRunner):
-    """The same sweep riding the VMEM Pallas kernel through the
+    """The same sweep riding the Pallas kernel through the
     runner's bulk path (one repetition = ``num_tiles * tile * lane``
-    independent BD solves, channels from the in-kernel PRNG on TPU /
-    injected bits on CPU). ``K``/``nr_u`` select a point of the
+    independent BD solves, channels from the in-kernel generator). ``K``/``nr_u`` select a point of the
     geometry menu — including non-bench points like (2, 2) or (4, 1).
 
     Degenerate draws are zeroed inside the kernel (the bench bd_step
     semantics) rather than retried: at ~1e-5 of draws the bias is far
     below the Monte Carlo noise at these batch sizes."""
 
-    def __init__(self, K: int = 2, nr_u: int = 2, tile: int = 8,
-                 lane: int = 256, num_tiles: int = 2):
+    def __init__(self, K: int = 2, nr_u: int = 2, tile: int = 1,
+                 lane: int = 128, num_tiles: int = 32,
+                 interpret: bool = False):
         super().__init__()
         self.params.add("Pu_dB", np.array([-5.0, 5.0, 15.0]))
         self.params.set_unpack_parameter("Pu_dB")
@@ -103,7 +102,7 @@ class BDKernelCapacityRunner(SimulationRunner):
         self.noise_var = 1.0
         self.progressbar_message = "BD kernel capacity - Pu {Pu_dB}"
         self.batch_result_types = {"sum_capacity": Result.RATIOTYPE}
-        self._tpu = jax.default_backend() == "tpu"
+        self.interpret = interpret
         self._fns = {}
 
     def _gen_bulk_kernel(self, current_parameters):
@@ -113,38 +112,17 @@ class BDKernelCapacityRunner(SimulationRunner):
                           Nr_u=self.nr_u)
         nt = self.num_tiles
         solves_per_rep = nt * mc.solves_per_grid_step
-        unpack_idx = max(current_parameters.unpack_index, 0)
+        seed = kernel_stream_seed(self.base_seed,
+                                  current_parameters.unpack_index)
         mesh = self.mesh
-
-        if self._tpu:
-            seed = kernel_stream_seed(self.base_seed, unpack_idx)
-
-            def bulk(start, n):
-                fkey = (iPu, n, mesh)
-                if fkey not in self._fns:
-                    self._fns[fkey] = mc.build(n, nt, mesh=mesh)
-                caps = jnp.sum(
-                    self._fns[fkey](jnp.int32(seed), jnp.int32(start)),
-                    axis=1)
-                return {"sum_capacity":
-                        (caps, np.full(n, float(solves_per_rep)))}
-
-            return bulk
-
-        base = jax.random.fold_in(jax.random.PRNGKey(self.base_seed),
-                                  unpack_idx)
 
         def bulk(start, n):
             fkey = (iPu, n, mesh)
             if fkey not in self._fns:
-                self._fns[fkey] = mc.build_inject(n, nt, mesh=mesh)
-            keys = jax.vmap(lambda i: jax.random.fold_in(base, i))(
-                jnp.arange(start, start + n))
-            shape = (nt * mc._tile, mc.num_planes * mc._lane)
-            bits = jax.vmap(
-                lambda k: jax.random.bits(k, shape, jnp.uint32))(keys)
-            caps = np.asarray(self._fns[fkey](bits),
-                              np.float64).sum(axis=1)
+                self._fns[fkey] = mc.build(n, nt, mesh=mesh,
+                                           interpret=self.interpret)
+            caps = jnp.sum(
+                self._fns[fkey](jnp.int32(seed), jnp.int32(start)), axis=1)
             return {"sum_capacity":
                     (caps, np.full(n, float(solves_per_rep)))}
 

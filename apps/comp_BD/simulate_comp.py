@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Full CoMP Block Diagonalization scenario simulator.
 
-TPU-native counterpart of the reference's LARGEST app,
+JAX-native counterpart of the reference's LARGEST app,
 ``apps/comp_BD/simulate_comp.py:1-883``: a cell-grid cluster with one
 user per cell (dropped at a RANDOM position each repetition, or at the
 symmetric far-away border points), 3GPP path-loss-derived channels, an
@@ -12,7 +12,7 @@ WhiteningBD over an (SNR, Pe_dBm) grid — recording BER / SER / packet
 error rate / effective spectral efficiency / mean SINR per metric, the
 reference's full result surface.
 
-TPU-first delta: the reference solves one numpy realization per
+Device-first delta: the reference solves one numpy realization per
 repetition inside ``_run_simulation``; here the default engine is the
 SimulationRunner BULK path — per chunk, the host vectorizes ONLY the
 scenario geometry (user drops -> path-loss matrices, exact
@@ -94,7 +94,7 @@ def _hexagon_fan(cluster):
 
 class BDSimulationRunner(SimulationRunner):
     """The reference's ``BDSimulationRunner`` (simulate_comp.py:30-660)
-    on the TPU engine: one runner computes ALL six metric variants per
+    on the device engine: one runner computes ALL six metric variants per
     repetition (sharing data / external interference / noise draws, as
     the reference does)."""
 
@@ -220,7 +220,7 @@ class BDSimulationRunner(SimulationRunner):
             self._cluster0.external_radius - d_center))
         return np.asarray(spl), np.asarray(spl_i)
 
-    # -- TPU bulk engine ---------------------------------------------------
+    # -- device bulk engine ------------------------------------------------
 
     def _gen_bulk_kernel(self, p):
         if self.engine != "device":
@@ -373,11 +373,10 @@ class BDSimulationRunner(SimulationRunner):
             @jax.jit
             def packed(keys, spl, spl_i):
                 out = vmapped(keys, spl, spl_i)
-                # the engine's single-transfer packing: the relay
-                # charges its fixed ~24 ms PER TRANSFER, so fetching
-                # the ~31 per-metric result arrays separately cost
-                # ~750 ms/chunk (measured best-of-4) while the program
-                # itself runs in ~60 ms — a 10x engine speedup
+                # the engine's single-transfer packing: every
+                # device-to-host transfer pays a fixed latency, so the
+                # ~31 per-metric result arrays are packed into one
+                # array and fetched once per chunk
                 ones = jnp.ones(keys.shape[0], bool)
                 return self._pack_tree(out, ones, box)
 

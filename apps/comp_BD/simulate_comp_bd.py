@@ -2,7 +2,7 @@
 """CoMP block diagonalization with external interference: SER for each
 stream-sacrifice metric.
 
-TPU-native counterpart of the reference's ``apps/comp_BD`` simulators.
+JAX-native counterpart of the reference's ``apps/comp_BD`` simulators.
 """
 
 import sys

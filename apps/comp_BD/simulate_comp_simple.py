@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CoMP transmission = simple block diagonalization of the joint channel.
 
-TPU-native counterpart of the reference's
+JAX-native counterpart of the reference's
 ``apps/comp_BD/simulate_comp_simple.py``: a 3-cell cluster with one
 border user per cell (ratio 0.7, angles 210/-30/90), 3GPP path loss,
 (negligible) external interference, QPSK, BD precoding with per-BS

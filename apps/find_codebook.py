@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Grassmannian codebook search by random sampling, TPU-native.
+"""Grassmannian codebook search by random sampling, device-native.
 
 Counterpart of the reference's ``apps/find_codebook.py`` (CodebookFinder,
 ``find_codebook``): find the set of K precoders in G(Nt, Ns) maximizing the
 minimum pairwise chordal distance.
 
-TPU redesign: the reference scores ONE random codebook per iteration with a
+Device redesign: the reference scores ONE random codebook per iteration with a
 Python loop over all K(K-1)/2 pairs, each pair paying a QR + SVD
 (find_codebook.py:152-196), and scales with one process per CPU core. Here a
 whole BATCH of candidate codebooks is scored per device dispatch:
@@ -69,7 +69,7 @@ def min_chordal_dist_sq(codebooks):
     ``codebooks``: CArray (..., K, Nt, Ns) -> (...,) real. Uses
     ``d_ij^2 = Ns - <P_i, P_j>_F`` (one einsum for all pairs) instead of
     the reference's per-pair principal-angle SVD loop
-    (find_codebook.py:152-196) — identical value, MXU-shaped.
+    (find_codebook.py:152-196) — identical value, matmul-shaped.
     """
     q, _ = cplx.qr(codebooks)
     p = cplx.matmul(q, q.mH)                       # (..., K, Nt, Nt)

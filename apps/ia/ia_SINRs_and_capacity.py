@@ -5,7 +5,7 @@ Counterpart of the reference's ``apps/ia/ia_SINRs_and_capacity.py``, which
 loops rep_max=100 random channels on the host, running AlternatingMin,
 Max-SINR and MMSE to 2000 iterations each, and exports a DataFrame.
 
-TPU redesign: the rep loop becomes ONE vmapped dispatch of the batched
+Device redesign: the rep loop becomes ONE vmapped dispatch of the batched
 fixed-iteration solvers (``pyphysim_tpu.ia.batched``) — all rep_max
 channels solved in parallel on device for Min-Leakage, Max-SINR and MMSE —
 with the host AlternatingMin solver run on a few realizations as a

@@ -8,7 +8,7 @@ feedback link); Max-SINR IA is solved on the QUANTIZED channel while the
 data is transmitted over the TRUE channel, and the BER degradation against
 perfect-CSI IA is measured.
 
-TPU redesign: the reference loops rep_max=300 host repetitions, each with a
+Device redesign: the reference loops rep_max=300 host repetitions, each with a
 Python codebook scan per channel block. Here quantization is one real
 matmul against the whole codebook + argmax + one-hot contraction (no
 gathers), the IA solve is the batched fixed-iteration Max-SINR from

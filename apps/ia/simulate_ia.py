@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """3-user MIMO interference channel: IA solver BER + sum-capacity sweep.
 
-TPU-native counterpart of the reference's ``apps/ia/simulate_ia.py``
+JAX-native counterpart of the reference's ``apps/ia/simulate_ia.py``
 (reference simulate_ia.py:24-888): one ``IASimulationRunner`` base class
 carrying the full transmit chain (IA solve -> modulate -> precode with
 ``full_F`` -> interference channel -> ``full_W_H`` filter -> demodulate ->

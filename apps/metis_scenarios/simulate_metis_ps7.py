@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """METIS PS7 indoor scenario: SINR map over a grid of square rooms.
 
-TPU-native counterpart of the reference's ``apps/metis_scenarios``
+JAX-native counterpart of the reference's ``apps/metis_scenarios``
 simulators: a floor of square rooms with one access point per room,
 users on a pixel grid, METIS PS7 path loss with wall counts, and the
 resulting downlink SINR map (computed as one vectorized jnp program).

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Monte Carlo SER/BER of MIMO schemes over flat Rayleigh fading.
 
-TPU-native counterpart of the reference's ``apps/mimo/simulate_mimo.py``:
+JAX-native counterpart of the reference's ``apps/mimo/simulate_mimo.py``:
 Alamouti 2xNr, MRC 1xNr and BLAST NxN with MMSE detection, all as jitted
 batch kernels. Early stop at an accumulated bit-error budget mirrors the
 reference (apps/mimo/simulate_mimo.py:145-150).

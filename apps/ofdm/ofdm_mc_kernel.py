@@ -1,22 +1,24 @@
 #!/usr/bin/env python
-"""OFDM-over-TDL BER sweep driven by the monolithic Pallas kernel.
+"""OFDM-over-TDL BER sweep on the runner's bulk path.
 
 Same simulation as ``apps/ofdm/ofdm_tdlchannel.py`` (the reference's
-north-star chain, apps/ofdm/ofdm_tdlchannel.py:14-120), but the whole
-Monte Carlo repetition runs inside ONE Pallas kernel
-(``pyphysim_tpu/ops/mc_pallas.py``) plugged into ``SimulationRunner``
-through the bulk-kernel extension point (``_gen_bulk_kernel``): the
-kernel owns its repetition axis and generates data, fading rays and
-noise from the TPU hardware PRNG, while the runner still provides the
+north-star chain, apps/ofdm/ofdm_tdlchannel.py:14-120), run through
+``SimulationRunner``'s bulk-kernel extension point (``_gen_bulk_kernel``):
+each call simulates a whole chunk of repetitions of the fused
+OFDM-over-TDL XLA chain (``ops/fused_ofdm_tdl.py``), and repetition ``a``
+draws all of its randomness from ``fold_in(PRNGKey(seed), a)`` with ``a``
+the ABSOLUTE attempt index. Results are therefore chunk-size invariant,
+resume is exact, and under ``simulate_in_parallel`` the chunk's
+repetitions split over the mesh bit-identically
+(:func:`pyphysim_tpu.parallel.shard_reps`). The runner provides the
 parameter sweep, Result accumulation, checkpoint/resume and early stop.
 
-On a TPU backend the in-kernel PRNG mode is used (~1.75e10 symbols/s on
-one v5e chip); elsewhere the same kernel math runs under the Pallas
-interpreter with host-supplied random bits, so the app works — slowly —
-on CPU too. Both modes honor the runner's absolute-attempt-cursor
-contract, so results are chunk-size invariant and resume is exact.
+A repetition is ``ofdm_symbols`` OFDM symbols sharing one Jakes channel
+realization; a chunk runs ``map_batch`` (default 64) repetitions at a
+time to bound device memory.
 """
 
+import math
 import sys
 
 sys.path.insert(0, ".")
@@ -25,103 +27,86 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pyphysim_tpu.channels import (COST259_TUx, JakesSampleGenerator,
-                                   TdlChannel)
-from pyphysim_tpu.modulators import OFDM
-from pyphysim_tpu.ops.mc_pallas import MonteCarloOfdmTdl
+from __graft_entry__ import _make_chain_step
+from pyphysim_tpu.parallel import shard_reps
 from pyphysim_tpu.simulations import (Result, SimulationRunner,
                                       kernel_stream_seed)
 from pyphysim_tpu.utils.conversion import dB2Linear
 
+NUM_USED = 300
+
+
+def build_bulk_chain(ofdm_symbols: int, reps: int, map_batch: int = 64,
+                     mesh=None, axis: str = "mc"):
+    """Jitted ``(seed:int32, snr_linear[, start]) -> (reps,) int32`` bit
+    errors of ``reps`` repetitions of the fused flagship chain (16-QAM /
+    OFDM(512, cp 52, 300 used) / COST259-TU with Jakes Doppler,
+    block-static), repetition ``r`` keyed by attempt ``start + r``."""
+    step = _make_chain_step(num_symbols=ofdm_symbols * NUM_USED,
+                            fft_size=512, cp_size=52, num_used=NUM_USED,
+                            block_static=True, fused=True)
+
+    def make_call(n):
+        batch = math.gcd(n, map_batch)
+
+        def call(seeds, snr_linear):
+            base = jax.random.PRNGKey(seeds[0])
+            keys = jax.vmap(lambda a: jax.random.fold_in(base, a))(
+                seeds[1] + jnp.arange(n))
+            errs = jax.lax.map(
+                lambda k: jax.vmap(step, (0, None))(k, snr_linear),
+                keys.reshape((n // batch, batch) + keys.shape[1:]))
+            return errs.reshape(n)
+
+        return call
+
+    def prologue(seed, snr_linear, start=0):
+        return (jnp.stack([jnp.asarray(seed, jnp.int32),
+                           jnp.asarray(start, jnp.int32)]),
+                jnp.asarray(snr_linear, jnp.float32))
+
+    return shard_reps(make_call, prologue, reps, mesh, axis)
+
 
 class OfdmMcKernelSimulationRunner(SimulationRunner):
     """16-QAM / OFDM(512, cp 52, 300 used) / COST259-TU with Jakes
-    Doppler, one repetition = ``num_tiles * tile`` OFDM symbols."""
+    Doppler, one repetition = ``ofdm_symbols`` OFDM symbols."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, ofdm_symbols: int = 256, **kwargs):
+        super().__init__(**kwargs)
         self.params.add("SNR", np.arange(0.0, 31.0, 5.0))
         self.params.set_unpack_parameter("SNR")
         self.rep_max = 16
         self.batch_size = 8
         self.update_progress_function_style = "text2"
-        self.tile = 128              # OFDM symbols per kernel grid step
-        self.num_tiles = 2           # grid steps (tiles) per repetition
-        bandwidth = 20e6
-        self.ofdm = OFDM(512, 52, 300)
-        self.jakes = JakesSampleGenerator(Fd=30.0, Ts=1.0 / bandwidth,
-                                          L=16)
-        self.channel = TdlChannel(self.jakes, COST259_TUx)
-        self.mc = MonteCarloOfdmTdl(self.ofdm, self.channel, M=16,
-                                    tile=self.tile)
+        self.ofdm_symbols = ofdm_symbols
         self.batch_result_types = {
             "bit_errors": Result.SUMTYPE,
             "ber": Result.RATIOTYPE,
         }
-        self._tpu = jax.default_backend() == "tpu"
         self._fns = {}
 
-    # -- the bulk kernel ---------------------------------------------------
-
     def _bits_per_rep(self) -> int:
-        return self.num_tiles * self.tile * self.mc._used * 4
+        return self.ofdm_symbols * NUM_USED * 4
 
     def _gen_bulk_kernel(self, current_parameters):
-        mc, nt = self.mc, self.num_tiles
         snr = dB2Linear(float(current_parameters["SNR"]))
         bits_per_rep = self._bits_per_rep()
-        unpack_idx = max(current_parameters.unpack_index, 0)
-        # When the runner sweeps under simulate_in_parallel, the chunk's
-        # rep axis is split across the mesh with per-device absolute
-        # start offsets inside the kernel (mc_pallas build(mesh=...));
-        # the stream contract keeps results bit-identical to unsharded.
+        seed = kernel_stream_seed(self.base_seed,
+                                  current_parameters.unpack_index)
         mesh = self.mesh
-
-        if self._tpu:
-            # in-kernel hardware PRNG; streams keyed by
-            # (seed, unpack_index-folded) x absolute attempt index
-            seed = kernel_stream_seed(self.base_seed, unpack_idx)
-
-            def bulk(start, n):
-                fkey = (n, mesh)
-                if fkey not in self._fns:
-                    self._fns[fkey] = self.mc.build(n, nt, mesh=mesh)
-                # lazy device arrays: the runner fetches them AFTER
-                # enqueueing the next chunk (double-buffered dispatch)
-                counts = jnp.sum(
-                    self._fns[fkey](jnp.int32(seed), jnp.float32(snr),
-                                    jnp.int32(start)), axis=1)
-                return {"bit_errors": counts,
-                        "ber": (counts.astype(jnp.float32),
-                                np.full(n, float(bits_per_rep)))}
-
-            return bulk
-
-        # CPU fallback: same kernel math under the Pallas interpreter,
-        # uint32 bits drawn on the host per absolute attempt index
-        amp = np.float32(np.sqrt(0.5 / snr) * mc.noise_gain)
-        base = jax.random.fold_in(jax.random.PRNGKey(self.base_seed),
-                                  unpack_idx)
-
-        def draw(key, salt, shape):
-            return jax.random.bits(jax.random.fold_in(key, salt), shape,
-                                   jnp.uint32)
 
         def bulk(start, n):
             fkey = (n, mesh)
             if fkey not in self._fns:
-                self._fns[fkey] = mc.build_inject(n, nt, mesh=mesh)
-            keys = jax.vmap(lambda i: jax.random.fold_in(base, i))(
-                jnp.arange(start, start + n))
-            shape = (nt * mc._tile, mc._used_p)
-            pb = jax.vmap(lambda k: draw(k, 0, (8, mc._TLp)))(keys)
-            db = jax.vmap(lambda k: draw(k, 1, shape))(keys)
-            n1 = jax.vmap(lambda k: draw(k, 2, shape))(keys)
-            n2 = jax.vmap(lambda k: draw(k, 3, shape))(keys)
-            counts = np.asarray(self._fns[fkey](pb, db, n1, n2, amp),
-                                np.int64).sum(axis=1)
+                self._fns[fkey] = build_bulk_chain(
+                    self.ofdm_symbols, n, mesh=mesh, axis=self.mesh_axis)
+            # lazy device arrays: the runner fetches them AFTER
+            # enqueueing the next chunk (double-buffered dispatch)
+            counts = self._fns[fkey](jnp.int32(seed), jnp.float32(snr),
+                                     jnp.int32(start))
             return {"bit_errors": counts,
-                    "ber": (counts.astype(float),
+                    "ber": (counts.astype(jnp.float32),
                             np.full(n, float(bits_per_rep)))}
 
         return bulk

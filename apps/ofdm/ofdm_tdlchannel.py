@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """16-QAM OFDM transmission over a time-varying COST259 TDL channel.
 
-TPU-native counterpart of the reference's ``apps/ofdm/ofdm_tdlchannel.py``
+JAX-native counterpart of the reference's ``apps/ofdm/ofdm_tdlchannel.py``
 (the north-star chain): QPSK/QAM -> OFDM -> Jakes/COST259 TDL ->
 one-tap equalization -> demodulation, as one jitted program vmapped over
 Monte Carlo realizations.

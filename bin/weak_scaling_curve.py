@@ -2,10 +2,9 @@
 """Weak-scaling curve of the sharded Monte Carlo step on the virtual
 CPU mesh (VERDICT r4 item 7).
 
-``docs/tpu_performance.md`` claims the sharded flagship scales
-"linearly in chip count until dispatch-bound"; real multi-chip hardware
-is not available, so this pins the SHAPE of that claim where it can be
-measured: per-device reps held constant while the mesh grows 1 -> 8
+The sharded flagship is meant to scale "linearly in device count until
+dispatch-bound"; this pins the SHAPE of that claim where it can be
+measured without cards: per-device reps held constant while the mesh grows 1 -> 8
 virtual CPU devices, so ideal weak scaling = flat reps/s/device. The
 collective in the program is the gather implied by replicating the
 summed error counters (the runner's psum-style reduction).

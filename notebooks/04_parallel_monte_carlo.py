@@ -13,7 +13,7 @@
 #
 # Run on CPU with 8 virtual devices
 # (`XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu`)
-# or on a real TPU slice unchanged.
+# or on real GPUs unchanged.
 
 # %%
 import jax

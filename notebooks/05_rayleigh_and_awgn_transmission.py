@@ -100,7 +100,7 @@ for i, s in enumerate(SNRS_DB):
 # %% [markdown]
 # Fading costs orders of magnitude at high SNR (the BER decays only as
 # 1/SNR), and two-branch MRC restores a slope of 1/SNR^2 — the classic
-# diversity picture, reproduced at TPU speed.
+# diversity picture, reproduced at device speed.
 
 # %%
 try:

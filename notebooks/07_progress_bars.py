@@ -55,7 +55,7 @@ with tempfile.TemporaryDirectory() as tmp:
 #
 # Each worker registers a proxy; a daemon thread in the parent sums the
 # counts. This is the reference's model for parallel Monte Carlo progress
-# (progressbar.py:1517-1687 there); the TPU runner only needs it for
+# (progressbar.py:1517-1687 there); the device runner only needs it for
 # host-side sweeps since an SPMD program reports one counter.
 
 # %%

@@ -9,7 +9,7 @@
 # back a lot of SER — `EnhancedBD` decides how many streams to drop per
 # user using one of several metrics, and `WhiteningBD` whitens instead.
 #
-# Here the WHOLE study runs on the TPU engine: each Monte Carlo
+# Here the WHOLE study runs on the device engine: each Monte Carlo
 # repetition drops users at random positions (host-side geometry,
 # vectorized per chunk), and one jitted device program draws the
 # path-loss-scaled channels, solves all the precoders and pushes the
@@ -24,7 +24,7 @@ sys.path.insert(0, "..")
 
 import numpy as np
 
-# force the CPU backend when running this notebook without a TPU
+# force the CPU backend when running this notebook without a GPU
 # (the device engine is backend-agnostic; on a real chip remove this)
 import jax
 

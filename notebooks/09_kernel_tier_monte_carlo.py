@@ -1,25 +1,26 @@
 # %% [markdown]
-# # The VMEM kernel tier: whole Monte Carlo repetitions in one TPU kernel
+# # The kernel tier: whole Monte Carlo repetitions in one Pallas kernel
 #
 # The fastest execution tier in `pyphysim_tpu` runs an ENTIRE Monte
-# Carlo repetition inside one Pallas kernel: data bits, channels and
-# noise come from the in-kernel TPU hardware PRNG, every intermediate
-# lives in VMEM, and the only HBM traffic is one reduced number per
-# grid step. Four families have kernels:
+# Carlo repetition inside one Pallas kernel (compiled for the GPU
+# through Triton): data bits, channels and noise come from an in-kernel
+# counter-based generator (`ops/counter_rng.py`), every intermediate
+# stays on chip, and the only device-memory traffic is one reduced
+# number per program. The kernels and their measured times on the card
+# are listed in `PERF.md` (the flagship OFDM/TDL chain has no kernel:
+# XLA's fused chain beat it on the H100):
 #
-# | family | class | chip rate (v5e) |
-# |---|---|---|
-# | OFDM/TDL BER (flagship) | `ops.mc_pallas.MonteCarloOfdmTdl` | 1.75e10 sym/s |
-# | Alamouti 2x1 QPSK BER | `ops.alamouti_pallas.MonteCarloAlamouti` | 2.30e10 sym/s |
-# | Max-SINR IA sum capacity | `ops.ia_pallas.MonteCarloMaxSinr` | 3.16e8 solves/s |
-# | BD CoMP sum capacity | `ops.bd_pallas.MonteCarloBD` | 5.84e8 solves/s |
+# | family | class |
+# |---|---|
+# | Alamouti 2x1 QPSK BER | `ops.alamouti_pallas.MonteCarloAlamouti` |
+# | Max-SINR IA sum capacity | `ops.ia_pallas.MonteCarloMaxSinr` |
+# | BD CoMP sum capacity | `ops.bd_pallas.MonteCarloBD` |
 #
 # Each kernel has a GEOMETRY MENU (users x antennas x streams) and can
 # shard its repetition axis over a device mesh bit-identically. This
-# notebook exercises the tier on the CPU interpreter: the kernels'
-# randomness is injectable (`build_inject`), so the identical kernel
-# math runs anywhere — the reference's test strategy of cross-checking
-# device paths on the host, applied to hand-written TPU kernels.
+# notebook exercises the tier on the CPU: `interpret=True` runs the
+# production kernel under the Pallas interpreter, drawing the same bits
+# from the same generator as on the GPU.
 
 # %%
 import sys
@@ -28,7 +29,7 @@ sys.path.insert(0, "..")
 
 import numpy as np
 
-# force the CPU backend when running this notebook without a TPU
+# force the CPU backend: the kernels run under the Pallas interpreter
 import jax
 
 try:
@@ -49,7 +50,7 @@ except RuntimeError:
 from apps.comp_BD.batched_bd_capacity import BDKernelCapacityRunner
 
 runner = BDKernelCapacityRunner(K=2, nr_u=2, tile=8, lane=128,
-                                num_tiles=1)
+                                num_tiles=1, interpret=True)
 runner.params.add("Pu_dB", np.array([-5.0, 5.0, 15.0]))
 runner.rep_max = 2
 runner.batch_size = 2
@@ -77,10 +78,8 @@ from pyphysim_tpu.ops.ia_pallas import MonteCarloMaxSinr
 for K, N, Ns in [(3, 2, 1), (2, 4, 2)]:
     mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=4, K=K, N=N,
                            Ns=Ns)
-    bits = jax.random.bits(
-        jax.random.PRNGKey(7),
-        (1, mc._tile, mc.num_planes * mc._lane), jnp.uint32)
-    cap = float(np.asarray(mc.build_inject(1, 1)(bits, 0.1)).sum())
+    cap = float(np.asarray(mc.build(1, 1, interpret=True)(
+        jnp.int32(7), 0.1)).sum())
     per_solve = cap / (mc._tile * mc._lane)
     print(f"(K={K}, {N}x{N}, Ns={Ns}): mean sum capacity "
           f"{per_solve:.2f} b/s/Hz")
@@ -92,8 +91,8 @@ for K, N, Ns in [(3, 2, 1), (2, 4, 2)]:
 # index, so splitting the rep axis over a `jax.sharding.Mesh` under
 # `shard_map` (each device offsets its stream window by
 # `device_index * reps_local`) produces BIT-identical results to the
-# unsharded kernel — the property that makes multi-chip scaling exact,
-# certified here on the virtual CPU mesh.
+# unsharded kernel — the property that makes multi-device scaling
+# exact, certified here on the virtual CPU mesh.
 
 # %%
 from pyphysim_tpu.ops.bd_pallas import MonteCarloBD
@@ -101,19 +100,15 @@ from pyphysim_tpu.parallel import make_mesh
 
 mc = MonteCarloBD(tile=8, lane=128, K=2, Nr_u=1)
 reps = 8
-bits = jax.random.bits(
-    jax.random.PRNGKey(3),
-    (reps, mc._tile, mc.num_planes * mc._lane), jnp.uint32)
-one = np.asarray(mc.build_inject(reps, 1)(bits))
+one = np.asarray(mc.build(reps, 1, interpret=True)(jnp.int32(3)))
 sharded = np.asarray(
-    mc.build_inject(reps, 1, mesh=make_mesh(8))(bits))
+    mc.build(reps, 1, mesh=make_mesh(8), interpret=True)(jnp.int32(3)))
 print("sharded == unsharded, bit-identical:",
       np.array_equal(one, sharded))
 
 # %% [markdown]
-# On real hardware the same `build(...)` call takes `mesh=` too, and
-# `SimulationRunner.simulate_in_parallel(mesh)` drives any of these
-# kernels through the same sweep/checkpoint machinery — see
-# `apps/mimo/alamouti_mc_kernel.py`, `apps/ia/ia_mc_kernel.py` and
-# `apps/comp_BD/batched_bd_capacity.py` for the three family apps, and
-# `docs/tpu_performance.md` for the measured geometry-menu tables.
+# On the GPU the same `build(...)` call (without `interpret`) takes
+# `mesh=` too, and `SimulationRunner.simulate_in_parallel(mesh)` drives
+# any of these kernels through the same sweep/checkpoint machinery —
+# see `apps/mimo/alamouti_mc_kernel.py`, `apps/ia/ia_mc_kernel.py` and
+# `apps/comp_BD/batched_bd_capacity.py` for the three family apps.

@@ -9,11 +9,11 @@ Three input families are accepted and dispatched on:
 
 * numpy complex arrays — the host path (parity-pinned against the live
   reference in tests/test_reference_crosscheck.py),
-* jnp complex arrays — works inside jit on CPU (the TPU backend has no
+* jnp complex arrays — works inside jit on CPU (the device code path has no
   complex dtype support),
 * :class:`~..ops.cplx.CArray` real-pair tensors — the DEVICE path: runs
-  inside jit on the real TPU backend (the tiny Hermitian inversions ride
-  :func:`~..ops.cplx.hpd_inv`'s closed-form/Schur recursion at full MXU
+  inside jit on the accelerator (the tiny Hermitian inversions ride
+  :func:`~..ops.cplx.hpd_inv`'s closed-form/Schur recursion at full matmul
   precision, the library convention for small-matrix chains).
 """
 

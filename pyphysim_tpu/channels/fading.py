@@ -1,6 +1,6 @@
 """Tapped-delay-line fading channels.
 
-TPU-native counterpart of the reference ``pyphysim/channels/fading.py``:
+JAX-native counterpart of the reference ``pyphysim/channels/fading.py``:
 
   * :class:`TdlChannelProfile` — tap powers/delays, mean excess delay, RMS
     delay spread, discretization to a sample grid (merge coincident taps,
@@ -18,7 +18,7 @@ TPU-native counterpart of the reference ``pyphysim/channels/fading.py``:
     contributes one shifted fused multiply-add over the whole signal
     (static unrolled over the ~15 nonzero taps -> one XLA fusion), and the
     MIMO case contracts over transmit antennas with an einsum that lands on
-    the MXU. ``corrupt_data_in_freq_domain`` implements the block-static
+    the matrix units. ``corrupt_data_in_freq_domain`` implements the block-static
     channel path (one impulse response per fft block, channel "skipped"
     fft_size-1 samples between blocks — fading.py:1126-1287) with ALL
     blocks generated in one batched closed-form Jakes evaluation (no
@@ -220,10 +220,10 @@ class TdlImpulseResponse:
     def get_freq_response(self, fft_size: int) -> CArray:
         """Frequency response via the matmul-DFT over the delay axis.
 
-        Returns shape ``(..., num_samples, fft_size)`` — note the TPU-native
+        Returns shape ``(..., num_samples, fft_size)`` — note the device-native
         convention puts the frequency axis LAST (the reference returns
         ``fft_size x ... x num_samples``, fading.py:513-536); last-axis
-        transforms are what the MXU wants.
+        transforms are what the matrix units want.
         """
         # Build (num_samples, ..., sparse_taps) by moving axes, then do a
         # sparse DFT: F[..., k] = sum_i tap_i * exp(-2j pi k d_i / N).
@@ -508,7 +508,7 @@ class TdlChannel:
         if block_size is not None and not mimo:
             # SISO block-static fast path: per-block frequency-domain
             # overlap-add convolution (one DFT matmul pair per block on
-            # the MXU; reads the signal once instead of once per tap).
+            # the matrix units; reads the signal once instead of once per tap).
             if num_symbols % block_size != 0:
                 raise ValueError(
                     "block_size must divide the number of transmitted "
@@ -608,7 +608,7 @@ class TdlChannel:
             # evaluate the trig DIRECTLY for every block. Measured faster
             # than rolling powers out with an associative scan of complex
             # products (0.128 vs 0.166 ms at the bench point): the scan's
-            # log2(B) passes are HBM-bound while the VPU eats the
+            # log2(B) passes are memory-bound while the vector units eat the
             # transcendentals in one pass.
             from .fading_generators import JakesState
             w = 2.0 * np.pi * gen.Fd * jnp.cos(state.phi_l[..., 0])
@@ -658,14 +658,6 @@ class TdlChannel:
         return self._last_impulse_response
 
 
-# Block-convolution backend: "pallas" (VMEM kernel, VPU), "fft" (per-block
-# frequency-domain product, MXU matmul-DFT), or "auto" (= fft). Both are
-# exact. Measured on v5e at the bench point (batch 128, block 564, span
-# 44): fft 2.19 Gsym/s vs pallas 1.78 — the matmul-DFT rides the MXU
-# while the per-tap MACs are VPU-bound. Re-benchmark before changing.
-BLOCK_CONV_IMPL = "auto"
-
-
 def tdl_filter_block_fft(ir_block: TdlImpulseResponse, signal: CArray,
                          block_size: int) -> CArray:
     """Block-static SISO TDL filtering via per-block frequency-domain
@@ -674,10 +666,10 @@ def tdl_filter_block_fft(ir_block: TdlImpulseResponse, signal: CArray,
     Within a block the channel is constant, so the block's contribution is
     a linear convolution of its ``block_size`` samples with the dense
     ``D``-tap kernel. Computed exactly as a circular convolution of length
-    ``block_size + D - 1`` using the matmul-DFT (MXU), then overlap-added
+    ``block_size + D - 1`` using the matmul-DFT, then overlap-added
     across block boundaries (the ``D - 1``-sample halo). Identical output
     to :func:`tdl_filter` with per-block-constant taps, at a fraction of
-    the HBM traffic (the per-tap shifted-add materializes the signal once
+    the device-memory traffic (the per-tap shifted-add materializes the signal once
     per tap).
 
     ``ir_block``: sparse taps (T, num_blocks). ``signal``: (N,). Returns
@@ -688,35 +680,26 @@ def tdl_filter_block_fft(ir_block: TdlImpulseResponse, signal: CArray,
     D = int(idx[-1]) + 1
     n = signal.shape[-1]
     nb = n // block_size
-    # circular length >= linear-conv length, rounded up to the 128-lane
-    # grid (unaligned DFT matmuls tile poorly on the MXU)
+    # circular length >= linear-conv length, rounded up to a multiple
+    # of 128 (aligned DFT matmul shapes)
     L = ((block_size + D - 1 + 127) // 128) * 128
 
     x_blocks = signal.reshape(nb, block_size)
-    impl = BLOCK_CONV_IMPL
-    if impl == "auto":
-        impl = "fft"
-    if impl == "pallas":
-        # Pallas kernel: whole convolution in VMEM (read x, write y once).
-        from ..ops.fir_pallas import block_fir
-        y = block_fir(x_blocks, taps.swapaxes(-1, -2), idx.tolist(),
-                      block_size)                            # (nb, bs+D-1)
-    else:
-        # XLA path: per-block frequency-domain circular convolution.
-        X = cfft.fft(x_blocks, n=L,
-                     precision=jax.lax.Precision.DEFAULT)    # (nb, L)
-        # Kernel spectrum straight from the sparse taps — computed in the
-        # SIGNAL dtype: with a bfloat16 signal path the product and the
-        # big inverse-DFT matmul then stay bf16 instead of silently
-        # promoting to f32 (a 3-6x MXU cost difference).
-        dt = signal.dtype
-        k = np.arange(L)
-        phase = -2.0 * np.pi / L * np.outer(idx, k)
-        w = CArray(jnp.asarray(np.cos(phase), dt),
-                   jnp.asarray(np.sin(phase), dt))           # (T, L)
-        H = cplx.matmul(taps.astype(dt).swapaxes(-1, -2), w)  # (nb, L)
-        Y = X * H
-        y = cfft.ifft(Y, precision=jax.lax.Precision.DEFAULT)  # (nb, L)
+    # per-block frequency-domain circular convolution
+    X = cfft.fft(x_blocks, n=L,
+                 precision=jax.lax.Precision.DEFAULT)        # (nb, L)
+    # Kernel spectrum straight from the sparse taps — computed in the
+    # SIGNAL dtype: with a bfloat16 signal path the product and the big
+    # inverse-DFT matmul then stay bf16 instead of silently promoting to
+    # f32.
+    dt = signal.dtype
+    k = np.arange(L)
+    phase = -2.0 * np.pi / L * np.outer(idx, k)
+    w = CArray(jnp.asarray(np.cos(phase), dt),
+               jnp.asarray(np.sin(phase), dt))               # (T, L)
+    H = cplx.matmul(taps.astype(dt).swapaxes(-1, -2), w)     # (nb, L)
+    Y = X * H
+    y = cfft.ifft(Y, precision=jax.lax.Precision.DEFAULT)    # (nb, L)
 
     # Overlap-add: block b's tail (D-1 samples) lands at the head of
     # block b+1 — a narrow strip update on the blocked view, then one

@@ -1,6 +1,6 @@
 """Fading sample generators: iid Rayleigh and Jakes sum-of-sinusoids.
 
-TPU-native counterpart of the reference
+JAX-native counterpart of the reference
 ``pyphysim/channels/fading_generators.py``. The reference generators are
 stateful objects mutating ``_samples``/``_current_time``
 (fading_generators.py:101-553); here the state is an EXPLICIT pytree
@@ -171,7 +171,7 @@ class JakesSampleGenerator(FadingSampleGenerator):
     """Jakes sum-of-sinusoids:
     ``h(t) = sqrt(1/L) sum_l exp(j(2 pi Fd cos(phi_l) t + psi_l))``.
 
-    The heavy trig evaluation ``cos/sin((L,) + shape + (N,))`` is pure VPU
+    The heavy trig evaluation ``cos/sin((L,) + shape + (N,))`` is pure elementwise
     work that XLA fuses with the ray-sum; the closed form in ``t`` makes
     blocks independent (block-static evolution via :meth:`skip`).
     """

@@ -16,8 +16,8 @@ Behavioral counterpart of ``pyphysim/channels/multiuser.py``:
     sources as extra zero-Rx "users" (extra big_H columns), their
     covariance, and overridden Q/SINR (multiuser.py:2011-2807).
 
-TPU-native shape: the reference stores an object-matrix-of-matrices view;
-here ``big_H`` is a single dense CArray (the MXU wants one matmul, not K^2
+Device-native shape: the reference stores an object-matrix-of-matrices view;
+here ``big_H`` is a single dense CArray (one matmul, not K^2
 small ones) and per-block views are static host-side slices. The K-loops
 in covariance/SINR computations unroll at trace time (K <= a few) into one
 fused XLA program; everything jits and vmaps over realizations.
@@ -144,7 +144,7 @@ class MuChannel:
         (rx, tx) grid). The reference builds K^2 independent channel
         objects (multiuser.py:99-118); here the K^2 grid is ONE vmapped
         TdlChannel so `corrupt_data` traces a single XLA program instead
-        of K^2 and the state is a single stacked pytree (TPU-native form,
+        of K^2 and the state is a single stacked pytree (device-native form,
         SURVEY §7)."""
         keys = jax.random.split(key,
                                 self._num_rx_users * self._num_tx_users)

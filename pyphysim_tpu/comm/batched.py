@@ -1,6 +1,6 @@
 """Device-batched Block Diagonalization (jit/vmap-able).
 
-TPU-native counterpart of the host :class:`~.BlockDiagonalizer`
+Device-native counterpart of the host :class:`~.BlockDiagonalizer`
 (reference blockdiagonalization.py:181-663) for the Monte Carlo hot path:
 one jitted program computes the BD precoders for a whole batch of joint
 CoMP channels at once, instead of a per-realization Python loop of numpy
@@ -42,8 +42,8 @@ from .waterfilling import doWF_jit
 
 
 def _full_precision(fn):
-    """Run the wrapped linalg routine with full-f32 MXU passes: the
-    TPU's default bf16 matmul precision (~0.4% rel error) sporadically
+    """Run the wrapped linalg routine with full-f32 matmul passes: the
+    accelerator's default reduced-precision matmuls (bf16/TF32) sporadically
     NaNs the null-space SVD -> water-filling chain on near-degenerate
     draws (same hazard as ops/cplx.ceig). These are tiny matrices —
     full precision costs nothing."""
@@ -251,7 +251,7 @@ def _canonicalize_phases(x: CArray) -> CArray:
     ext-int covariance, so the phases are physically meaningful there —
     canonicalizing makes the construction deterministic across backends
     and lets the device and host solvers agree per-realization. One-hot
-    contraction instead of a gather (TPU-friendly)."""
+    contraction instead of a gather (accelerator-friendly)."""
     mag2 = x.abs2()                                    # (..., m, n)
     oh = jax.nn.one_hot(jnp.argmax(mag2, axis=-2), x.shape[-2],
                         dtype=x.re.dtype, axis=-2)

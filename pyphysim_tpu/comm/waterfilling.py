@@ -72,8 +72,8 @@ def doWF_jit(gains: jnp.ndarray, total_power: float,
     inv = noise_var / gains                             # (..., n)
     # Stable ascending RANK of each 1/gain via pairwise comparisons
     # (ties broken by index): no sort, no argsort, no take_along_axis —
-    # gathers are extremely slow on TPU, and for the n <= ~16 stream
-    # counts here the O(n^2) comparison mask is a handful of VPU ops.
+    # gathers vectorize poorly on accelerators, and for the n <= ~16 stream
+    # counts here the O(n^2) comparison mask is a handful of elementwise ops.
     idx = jnp.arange(n)
     lt = inv[..., None, :] < inv[..., :, None]          # inv_j < inv_i
     tie = (inv[..., None, :] == inv[..., :, None]) & (idx < idx[:, None])

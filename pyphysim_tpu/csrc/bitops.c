@@ -1,6 +1,6 @@
 /* Native popcount kernels — host-side fallback for BER counting.
  *
- * The TPU compute path uses XLA's `population_count` (see
+ * The device compute path uses XLA's `population_count` (see
  * pyphysim_tpu/utils/misc.py:count_bits); this tiny C library is the
  * native equivalent of the reference's numba ufunc
  * (pyphysim/util/misc.py:449-476) and its intended-but-missing Cython

@@ -1,13 +1,13 @@
 """Batched, jittable interference alignment (Max-SINR family).
 
 The host-side solvers in :mod:`.algorithms` mirror the reference's
-object API with data-dependent convergence. For Monte Carlo at TPU scale
+object API with data-dependent convergence. For Monte Carlo at accelerator scale
 a different shape wins: FIXED-iteration Max-SINR expressed entirely on
 :class:`~pyphysim_tpu.ops.cplx.CArray` tensors, vmappable over thousands
 of channel realizations and runnable inside one jitted sweep program.
 
 Channel layout: dense ``H`` of shape ``(K, K, Nr, Nt)`` (receiver k,
-transmitter l) — the TPU-native form of the reference's
+transmitter l) — the device-native form of the reference's
 matrix-of-matrices (SURVEY §7). All K/Ns loops unroll at trace time
 (K and Ns are small and static).
 
@@ -495,7 +495,7 @@ def closed_form_solve(H: CArray, Ns: int = 1, P: float = 1.0,
     from F0 through the cross links; W_k are the least eigenvectors of
     the residual interference Gram matrices. The general complex
     eigendecomposition uses :func:`pyphysim_tpu.ops.cplx.ceig` (analytic
-    2x2 / shifted-QR) because ``jnp.linalg.eig`` has no TPU lowering.
+    2x2 / shifted-QR) because ``jnp.linalg.eig`` has no accelerator lowering.
 
     ``H``: (3, 3, Nr, Nt) CArray (square per-link blocks). Returns
     ``(F, U)`` stacked (3, Nt, Ns) / (3, Nr, Ns); vmap over leading axes.
@@ -548,7 +548,7 @@ def closed_form_solve(H: CArray, Ns: int = 1, P: float = 1.0,
     best = jnp.argmax(caps, axis=-1)
     F_all = cplx.stack(Fs, axis=0)               # (C, ..., 3, Nt, Ns)
     U_all = cplx.stack(Us, axis=0)
-    # one-hot contraction instead of a dynamic gather (TPU-friendly and
+    # one-hot contraction instead of a dynamic gather (accelerator-friendly and
     # correct under vmap where `best` is batched)
     onehot = jax.nn.one_hot(best, len(combos), dtype=H.re.dtype)
 

@@ -5,10 +5,10 @@ Behavioral counterpart of the reference ``pyphysim/mimo/mimo.py``
 mimo.py:789-827, SVDMimo mimo.py:833-946, GMDMimo mimo.py:952-1067,
 Alamouti mimo.py:1073-1287, post-SINR helpers mimo.py:33-114).
 
-TPU-native design: every scheme is a pure batched function over
+Device-native design: every scheme is a pure batched function over
 :class:`~pyphysim_tpu.ops.cplx.CArray` tensors — channels ``(..., Nr, Nt)``
 and symbol streams ``(..., n)`` — with linear algebra lowering to the
-real-pair kernels in ``ops.cplx`` (MXU matmuls, embedding solves). The
+real-pair kernels in ``ops.cplx`` (real matmuls, embedding solves). The
 small per-realization matrices (2x2 .. 8x8) batch across thousands of
 Monte Carlo realizations in one compiled program. Class wrappers mirror
 the reference's object API (set_channel_matrix / encode / decode) and

@@ -1,6 +1,6 @@
 """Fundamental digital modulators: M-PSK, M-QAM, BPSK, QPSK.
 
-TPU-native counterpart of the reference ``pyphysim/modulators/fundamental.py``
+JAX-native counterpart of the reference ``pyphysim/modulators/fundamental.py``
 (constellation semantics at fundamental.py:412-419 for Gray-mapped PSK,
 fundamental.py:689-777 for square Gray-mapped unit-energy QAM; theoretical
 SER/BER at fundamental.py:462-501 and 780-857; base modulate/demodulate at
@@ -12,7 +12,7 @@ Design: a modulator is an immutable object holding its constellation table.
 
   * modulate   = table gather         ``constellation[indices]``
   * demodulate = nearest-neighbor     ``argmin_k |rx - constellation[k]|``
-    evaluated as a fused broadcast on the VPU. For square QAM a closed-form
+    evaluated as a fused elementwise broadcast. For square QAM a closed-form
     per-axis slicer (`QAM.demodulate_hard`) avoids the M-way search entirely
     — O(1) per symbol instead of O(M) — which matters for 64/256-QAM at
     10^9 symbols/s.
@@ -124,8 +124,8 @@ class Modulator:
                 raise ValueError(
                     f"Input data must be between 0 and {self._M - 1}")
             return self._constellation[idx]
-        # Device path: a gather over a small table is very slow on TPU;
-        # a one-hot contraction rides the VPU/MXU instead.
+        # Device path: a gather over a small table vectorizes poorly;
+        # a one-hot contraction is a fused multiply-add instead.
         idx = input_data
         onehot = (idx[..., None] == jnp.arange(self._M)).astype(jnp.float32)
         table = self._constellation_dev
@@ -136,7 +136,7 @@ class Modulator:
         """Nearest-neighbor hard decision: argmin_k |rx - c_k|.
 
         Batched over every leading dimension; the broadcast against the
-        length-M table fuses into one VPU pass under jit. Accepts numpy
+        length-M table fuses into one elementwise pass under jit. Accepts numpy
         complex (host path) or CArray (device path).
         """
         if isinstance(received_data, np.ndarray):
@@ -324,7 +324,7 @@ class QAM(Modulator):
         return CArray(re, im)
 
     def demodulate_hard(self, received_data: CArray) -> jnp.ndarray:
-        """O(1)-per-symbol QAM slicer (TPU fast path).
+        """O(1)-per-symbol QAM slicer (device fast path).
 
         Quantize I and Q independently to the nearest PAM level, then
         rebuild the Gray-mapped index. Exact same decisions as the generic

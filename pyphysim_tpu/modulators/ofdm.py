@@ -1,7 +1,7 @@
-"""OFDM modulation/demodulation on the MXU (matmul-DFT), plus the one-tap
+"""OFDM modulation/demodulation as matmul-DFTs, plus the one-tap
 equalizer.
 
-TPU-native counterpart of the reference ``pyphysim/modulators/ofdm.py``:
+JAX-native counterpart of the reference ``pyphysim/modulators/ofdm.py``:
   * subcarrier mapping semantics identical to ofdm.py:188-281 (used
     subcarriers centered on the spectrum, DC skipped, guard bands at the
     edges),
@@ -10,9 +10,9 @@ TPU-native counterpart of the reference ``pyphysim/modulators/ofdm.py``:
   * cyclic prefix add/remove as in ofdm.py:320-341,
   * one-tap equalizer semantics of ofdm.py:469-552.
 
-Differences by design (TPU-first):
+Differences by design (accelerator-first):
   * the transform is the matmul-DFT of ``pyphysim_tpu.ops.fft`` (no complex
-    dtype on TPU; MXU beats butterflies at these sizes),
+    dtype on device; matmuls beat butterflies at these sizes),
   * everything is batched: inputs of shape (..., n_symbols) process each
     leading dim as an independent stream in one fused program,
   * shapes are static under jit: the input length must be a multiple of
@@ -40,7 +40,7 @@ class OFDM:
     def __init__(self, fft_size: int, cp_size: int,
                  num_used_subcarriers: Optional[int] = None) -> None:
         self.set_parameters(fft_size, cp_size, num_used_subcarriers)
-        # MXU precision for the (I)DFT matmuls: HIGHEST = true fp32
+        # matmul precision for the (I)DFT matmuls: HIGHEST = true fp32
         # (default), HIGH = 3-pass bf16, DEFAULT = single-pass bf16
         # (fastest, ~0.4% relative error).
         import jax as _jax
@@ -164,7 +164,7 @@ class OFDM:
         x = x.reshape(batch + (n_sym, self.num_used_subcarriers))
 
         # Pruned inverse DFT: only the used bins carry data, so the
-        # transform is one (num_used, fft_size) matmul — 40% fewer MXU
+        # transform is one (num_used, fft_size) matmul — 40% fewer matmul
         # FLOPs than assembling the zero-padded spectrum and running the
         # full (fft, fft) IDFT, and no spectrum-assembly memory pass.
         # Exactly equal: the skipped rows multiply zeros. The IDFT 1/N
@@ -247,7 +247,7 @@ class OfdmOneTapEqualizer:
             # the exact order the demodulated data lays them out — skips
             # the (fft_size - num_used) unused bins AND the
             # slice+concatenate reordering pass. Runs at the OFDM
-            # object's MXU precision.
+            # object's matmul precision.
             o = self._ofdm_obj
             idx = impulse_response.tap_indexes_sparse
             bins = o.get_used_subcarrier_indexes() % o.fft_size

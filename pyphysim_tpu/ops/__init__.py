@@ -1,4 +1,4 @@
-"""TPU compute kernels and primitives: real-pair complex arithmetic,
+"""Device compute kernels and primitives: real-pair complex arithmetic,
 matmul-DFT, channel FIR, batched small-matrix solves."""
 
 from . import cplx  # noqa: F401

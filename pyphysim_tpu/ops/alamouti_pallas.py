@@ -1,12 +1,12 @@
 """Monolithic Alamouti 2x1 Monte-Carlo Pallas kernel.
 
-VMEM-resident counterpart of the unfused Alamouti chain (the reference's
+Register-resident counterpart of the unfused Alamouti chain (the reference's
 ``apps/mimo/simulate_mimo.py:69-141`` semantics: QPSK -> Alamouti 2x1
 encode -> flat Rayleigh block fading -> AWGN -> matched combining ->
-hard demod -> bit errors), built the same way as the flagship OFDM/TDL
-kernel (:mod:`.mc_pallas`): data bits, channel and AWGN all come from
-the in-kernel TPU hardware PRNG, every intermediate lives in VMEM, and
-the only HBM traffic is one int32 error count per grid step.
+hard demod -> bit errors), built like the IA and BD kernels: data
+bits, channel and AWGN all come from the in-kernel counter-based
+generator (:mod:`.counter_rng`), every intermediate stays on chip, and
+the only device-memory traffic is one int32 error count per program.
 
 The algebra collapses to pure sign arithmetic:
 
@@ -20,14 +20,16 @@ The algebra collapses to pure sign arithmetic:
   (mimo.py:1073-1287; the combiner gain ``|h1|^2+|h2|^2`` is positive,
   so QPSK decisions need no division).
 * The channel is constant over a (rep, lane) STREAM: lanes are
-  independent virtual repetitions whose ``h`` is drawn once per rep from
-  the per-rep ray stream (rows 0..3 of an (8, lane) draw) and re-derived
-  identically by every tile of that rep — the same per-rep keying
-  contract as :class:`.mc_pallas.MonteCarloOfdmTdl`, so the runner's
-  absolute attempt cursor and the mesh sharding both apply unchanged.
+  independent virtual repetitions whose ``h`` is drawn once per rep
+  from streams 0 and 1 indexed by the lane, and re-derived identically
+  by every tile of that rep — keyed by (seed, absolute repetition), so
+  the runner's absolute attempt cursor and the mesh sharding both apply
+  unchanged. Data and noise come from streams 2..4 indexed by the
+  absolute element.
 
-Randomness is injectable (``build_inject``) for CPU-interpreter tests;
-the TPU-PRNG mode runs the identical ``_simulate_block`` math.
+``interpret=True`` runs the identical kernel under the Pallas
+interpreter on the CPU; :meth:`MonteCarloAlamouti.reference_counts` is
+an independent complex model in plain ``jax.numpy`` fed the same bits.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .mc_pallas import _u11
+from ..parallel.mesh import shard_reps
+from .counter_rng import gauss_half, random_bits
+from .pallas_common import (TRITON_PARAMS, block_elements,
+                            check_block, require_kernel_backend)
 
 __all__ = ["MonteCarloAlamouti"]
 
@@ -54,37 +58,30 @@ class MonteCarloAlamouti:
     ``reps * num_tiles * tile * lane * 2``.
     """
 
-    def __init__(self, tile: int = 256, lane: int = 512) -> None:
-        if tile < 8 or tile % 8:
-            raise ValueError("tile must be a multiple of 8")
-        if lane < 128 or lane % 128:
-            raise ValueError("lane must be a multiple of 128")
+    def __init__(self, tile: int = 8, lane: int = 128) -> None:
+        check_block(tile, lane)
         self._tile = int(tile)
         self._lane = int(lane)
 
     # ------------------------------------------------------------------
 
-    def _simulate_block(self, ch_bits, d_bits, n1r_bits, n1i_bits,
-                        n2r_bits, n2i_bits, amp):
-        """One (tile, lane) block of Alamouti codewords -> error count.
-
-        ch_bits: (8, lane) — rows 0..3 are (h1re, h1im, h2re, h2im)
-        d_bits:  (tile, lane) — low 4 bits = the two QPSK indices
-        n*_bits: (tile, lane) — AWGN uniforms (2 complex samples)
-        amp: scalar f32 — per-component noise std ``sqrt(0.5/snr)``
-        """
+    def _simulate_block(self, seed, attempt, s, amp):
+        """Block ``s`` of repetition ``attempt`` -> bit-error count.
+        ``amp``: per-component noise std ``sqrt(0.5/snr)``."""
         f32 = jnp.float32
-        clip = f32(0.99999994)  # two-sided tail clamp (mc_pallas:220-233)
+        tile, lane = self._tile, self._lane
+        gauss = gauss_half
 
-        def gauss(bits):
-            return jax.lax.erf_inv(jnp.clip(_u11(bits), -clip, clip))
-
-        # h components ~ N(0, 1/2) per part: erf_inv(u)*sqrt(2) is
-        # N(0,1), times sqrt(1/2) -> erf_inv(u) exactly
-        h1r = gauss(ch_bits[0:1, :])
-        h1i = gauss(ch_bits[1:2, :])
-        h2r = gauss(ch_bits[2:3, :])
-        h2i = gauss(ch_bits[3:4, :])
+        # h components ~ N(0, 1/2) per part, one draw per lane and rep
+        lanes = jax.lax.broadcasted_iota(jnp.int32, (1, lane), 1
+                                         ).astype(jnp.uint32)
+        b1r, b1i = random_bits(seed, attempt, lanes, 0)
+        b2r, b2i = random_bits(seed, attempt, lanes, 1)
+        h1r, h1i, h2r, h2i = gauss(b1r), gauss(b1i), gauss(b2r), gauss(b2i)
+        elem = block_elements(s, tile, lane)
+        d_bits, n1r_bits = random_bits(seed, attempt, elem, 2)
+        n1i_bits, n2r_bits = random_bits(seed, attempt, elem, 3)
+        n2i_bits, _ = random_bits(seed, attempt, elem, 4)
 
         idx = d_bits.astype(jnp.int32) & 15
         c = f32(1.0 / math.sqrt(2.0))
@@ -94,10 +91,10 @@ class MonteCarloAlamouti:
         s2i = (1 - 2 * ((idx >> 3) & 1)).astype(f32) * c
 
         sqrt2 = f32(math.sqrt(2.0))
-        n1r = jax.lax.erf_inv(jnp.clip(_u11(n1r_bits), -clip, clip)) * sqrt2
-        n1i = jax.lax.erf_inv(jnp.clip(_u11(n1i_bits), -clip, clip)) * sqrt2
-        n2r = jax.lax.erf_inv(jnp.clip(_u11(n2r_bits), -clip, clip)) * sqrt2
-        n2i = jax.lax.erf_inv(jnp.clip(_u11(n2i_bits), -clip, clip)) * sqrt2
+        n1r = gauss(n1r_bits) * sqrt2
+        n1i = gauss(n1i_bits) * sqrt2
+        n2r = gauss(n2r_bits) * sqrt2
+        n2i = gauss(n2i_bits) * sqrt2
 
         # received samples, power-split encode (mimo.py _encode / sqrt 2):
         # r1 = (h1 s1 + h2 s2)/sqrt2 + n,  r2 = (-h1 s2* + h2 s1*)/sqrt2
@@ -125,159 +122,94 @@ class MonteCarloAlamouti:
                 ((diff >> 3) & 1))
         return jnp.sum(errs)
 
-    # ------------------------------------------------------------------
-    # TPU mode: in-kernel PRNG
-    # ------------------------------------------------------------------
-
     def build(self, reps: int, num_tiles: int, mesh=None,
-              axis: str = "mc"):
+              axis: str = "mc", interpret: bool = False):
         """Jitted ``(seed:int32, snr_linear[, start]) ->
         (reps, num_tiles) int32`` bit-error counts. ``start`` offsets the
         per-repetition stream index (the runner bulk-path contract);
         ``mesh`` shards the rep axis bit-identically (same scheme as
-        :meth:`.mc_pallas.MonteCarloOfdmTdl.build`)."""
-        if mesh is None:
-            call = self._make_prng_call(reps, num_tiles)
+        :func:`~pyphysim_tpu.parallel.shard_reps`). Without
+        ``interpret``, a backend other than the GPU raises."""
+        require_kernel_backend(interpret)
 
-            @jax.jit
-            def run(seed, snr_linear, start=0):
-                amp = jnp.sqrt(0.5 / snr_linear).astype(jnp.float32)
-                seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                                   jnp.asarray(start, jnp.int32)])
-                return call(seeds, jnp.reshape(amp, (1,)))
-
-            return run
-
-        from jax import shard_map
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        n_dev = int(mesh.shape[axis])
-        if reps % n_dev:
-            raise ValueError(f"reps {reps} not divisible by mesh axis "
-                             f"{axis!r} size {n_dev}")
-        reps_local = reps // n_dev
-        call = self._make_prng_call(reps_local, num_tiles)
-
-        def local(seeds, amp):
-            i = jax.lax.axis_index(axis)
-            seeds = seeds.at[1].add(i * reps_local)
-            return call(seeds, amp)
-
-        sharded = shard_map(local, mesh=mesh, in_specs=(P(), P()),
-                            out_specs=P(axis), check_vma=False)
-        replicated = NamedSharding(mesh, P())
-
-        @jax.jit
-        def run(seed, snr_linear, start=0):
+        def prologue(seed, snr_linear, start=0):
             amp = jnp.sqrt(0.5 / snr_linear).astype(jnp.float32)
-            seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                               jnp.asarray(start, jnp.int32)])
-            out = sharded(seeds, jnp.reshape(amp, (1,)))
-            return jax.lax.with_sharding_constraint(out, replicated)
+            return (jnp.stack([jnp.asarray(seed, jnp.int32),
+                               jnp.asarray(start, jnp.int32)]),
+                    jnp.reshape(amp, (1,)))
 
-        return run
+        return shard_reps(
+            lambda n: self._make_call(n, num_tiles, interpret), prologue,
+            reps, mesh, axis)
 
-    def _make_prng_call(self, reps: int, num_tiles: int):
-        tile, lane = self._tile, self._lane
-
+    def _make_call(self, reps: int, num_tiles: int, interpret: bool):
         def kernel(seed_ref, amp_ref, out_ref):
             r = pl.program_id(0)
             s = pl.program_id(1)
-            r_abs = seed_ref[1] + r
-            # even stream: per-rep channel (identical for every tile of
-            # rep r); odd stream: per-tile data + noise (mc_pallas
-            # keying, :342-358)
-            pltpu.prng_seed(seed_ref[0], r_abs << 1)
-            ch_bits = pltpu.prng_random_bits((8, lane))
-            pltpu.prng_seed(seed_ref[0],
-                            ((r_abs * num_tiles + s) << 1) | 1)
-            d_bits = pltpu.prng_random_bits((tile, lane))
-            n1r = pltpu.prng_random_bits((tile, lane))
-            n1i = pltpu.prng_random_bits((tile, lane))
-            n2r = pltpu.prng_random_bits((tile, lane))
-            n2i = pltpu.prng_random_bits((tile, lane))
-            out_ref[r, s] = self._simulate_block(
-                ch_bits, d_bits, n1r, n1i, n2r, n2i, amp_ref[0])
+            out_ref[...] = self._simulate_block(
+                seed_ref[0].astype(jnp.uint32),
+                (seed_ref[1] + r).astype(jnp.uint32), s, amp_ref[0])
 
         return pl.pallas_call(
             kernel,
             grid=(reps, num_tiles),
             out_shape=jax.ShapeDtypeStruct((reps, num_tiles), jnp.int32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                      pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        )
-
-    # ------------------------------------------------------------------
-    # inject mode: bits are inputs — runs under the interpreter on CPU
-    # ------------------------------------------------------------------
-
-    def build_inject(self, reps: int, num_tiles: int,
-                     interpret: bool = True, mesh=None,
-                     axis: str = "mc"):
-        """Same math with the randomness supplied as uint32 tensors:
-        ``fn(ch_bits (reps, 8, lane), d/n1r/n1i/n2r/n2i
-        (reps, num_tiles * tile, lane), amp) -> (reps, num_tiles)``.
-        ``mesh`` shards the rep axis with :func:`shard_map` — the
-        CPU-testable twin of the sharded TPU-PRNG mode (the bits carry
-        the absolute attempt index, so results are bit-identical to
-        unsharded; same contract as mc_pallas ``build_inject``)."""
-        tile, lane = self._tile, self._lane
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            n_dev = int(mesh.shape[axis])
-            if reps % n_dev:
-                raise ValueError(f"reps {reps} not divisible by mesh "
-                                 f"axis {axis!r} size {n_dev}")
-            local = self.build_inject(reps // n_dev, num_tiles,
-                                      interpret)
-            sharded = shard_map(
-                local, mesh=mesh,
-                in_specs=(P(axis),) * 6 + (P(),),
-                out_specs=P(axis), check_vma=False)
-            replicated = NamedSharding(mesh, P())
-
-            @jax.jit
-            def run(ch_bits, d_bits, n1r, n1i, n2r, n2i, amp):
-                out = sharded(ch_bits, d_bits, n1r, n1i, n2r, n2i, amp)
-                return jax.lax.with_sharding_constraint(out, replicated)
-
-            return run
-
-        def kernel(amp_ref, ch_ref, d_ref, n1r_ref, n1i_ref, n2r_ref,
-                   n2i_ref, out_ref):
-            r = pl.program_id(0)
-            s = pl.program_id(1)
-            out_ref[r, s] = self._simulate_block(
-                ch_ref[0], d_ref[0], n1r_ref[0], n1i_ref[0], n2r_ref[0],
-                n2i_ref[0], amp_ref[0])
-
-        tiled = pl.BlockSpec((1, tile, lane), lambda r, s: (r, s, 0),
-                             memory_space=pltpu.VMEM)
-        call = pl.pallas_call(
-            kernel,
-            grid=(reps, num_tiles),
-            out_shape=jax.ShapeDtypeStruct((reps, num_tiles), jnp.int32),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((1, 8, lane), lambda r, s: (r, 0, 0),
-                             memory_space=pltpu.VMEM),
-                tiled, tiled, tiled, tiled, tiled,
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
+            in_specs=[pl.BlockSpec((2,), lambda r, s: (0,)),
+                      pl.BlockSpec((1,), lambda r, s: (0,))],
+            out_specs=pl.BlockSpec((None, None), lambda r, s: (r, s)),
+            backend="triton",
+            compiler_params=TRITON_PARAMS,
             interpret=interpret,
+            name="alamouti",
         )
 
-        def run(ch_bits, d_bits, n1r, n1i, n2r, n2i, amp):
-            return call(jnp.reshape(amp, (1,)).astype(jnp.float32),
-                        ch_bits.astype(jnp.int32),
-                        d_bits.astype(jnp.int32), n1r.astype(jnp.int32),
-                        n1i.astype(jnp.int32), n2r.astype(jnp.int32),
-                        n2i.astype(jnp.int32))
+    def reference_counts(self, reps: int, num_tiles: int, seed,
+                         snr_linear, start=0):
+        """``(reps, num_tiles)`` bit-error counts of the same
+        repetitions as :meth:`build`, from complex ``jax.numpy``
+        arithmetic (encode, channel, matched combiner, sign slicer) on
+        the same generator bits — an independent model of the kernel's
+        real-plane sign arithmetic."""
+        tile, lane = self._tile, self._lane
+        rows = num_tiles * tile
+        seed = jnp.asarray(seed, jnp.int32).astype(jnp.uint32)
+        amp = jnp.sqrt(0.5 / jnp.asarray(snr_linear, jnp.float32))
+        lanes = jnp.arange(lane, dtype=jnp.uint32)
+        elem = (jnp.arange(rows, dtype=jnp.uint32)[:, None] * lane +
+                lanes[None, :])
+        c = np.float32(1.0 / math.sqrt(2.0))
 
-        return run
+        def cgauss(a, b):
+            return gauss_half(a) + 1j * gauss_half(b)
+
+        def qpsk(bits2):
+            return ((1 - 2 * (bits2 & 1)) +
+                    1j * (1 - 2 * ((bits2 >> 1) & 1))) * c
+
+        def one(attempt):
+            key = (seed, attempt.astype(jnp.uint32))
+            h1 = cgauss(*random_bits(*key, lanes, 0))
+            h2 = cgauss(*random_bits(*key, lanes, 1))
+            d, n1r = random_bits(*key, elem, 2)
+            n1i, n2r = random_bits(*key, elem, 3)
+            n2i, _ = random_bits(*key, elem, 4)
+            idx = d.astype(jnp.int32) & 15
+            s1, s2 = qpsk(idx), qpsk(idx >> 2)
+            n1 = cgauss(n1r, n1i) * np.float32(math.sqrt(2.0))
+            n2 = cgauss(n2r, n2i) * np.float32(math.sqrt(2.0))
+            r1 = (h1 * s1 + h2 * s2) * c + amp * n1
+            r2 = (-h1 * jnp.conj(s2) + h2 * jnp.conj(s1)) * c + amp * n2
+            d1 = jnp.conj(h1) * r1 + h2 * jnp.conj(r2)
+            d2 = jnp.conj(h2) * r1 - h1 * jnp.conj(r2)
+            decided = ((d1.real < 0).astype(jnp.int32) |
+                       ((d1.imag < 0).astype(jnp.int32) << 1) |
+                       ((d2.real < 0).astype(jnp.int32) << 2) |
+                       ((d2.imag < 0).astype(jnp.int32) << 3))
+            errs = jax.lax.population_count(idx ^ decided)
+            return jnp.sum(errs.reshape(num_tiles, -1), axis=-1)
+
+        attempts = jnp.asarray(start, jnp.int32) + jnp.arange(reps)
+        return jax.lax.map(one, attempts)
 
     # ------------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Monolithic BD CoMP capacity Monte-Carlo Pallas kernel.
 
-VMEM-resident counterpart of the batched Block Diagonalization sweep
+Register-resident counterpart of the batched Block Diagonalization sweep
 (``comm/batched.bd_precoders_batched`` + normalized water-filling +
 sum capacity — reference ``comm/blockdiagonalization.py:181-663`` /
 the comp_BD app family), geometry-general over ``K`` users with
@@ -8,13 +8,15 @@ the comp_BD app family), geometry-general over ``K`` users with
 ``Nt_total = K * Nr_u`` (the reference solver's shape-general surface,
 ``blockdiagonalization.py:272-401``, at kernel speed for
 K in {2, 3, 4, ...} x Nr_u in {1, 2}): each (row, lane) element draws
-its own Nt x Nt joint channel from the in-kernel TPU PRNG and runs the
+its own Nt x Nt joint channel from the in-kernel counter-based
+generator (:mod:`.counter_rng`) and runs the
 ENTIRE solve as pure plane arithmetic (:mod:`.pallas_planes`) — the
 projector-route null space via an unrolled LDL^H solve of the
 (K-1)*Nr_u Hermitian Gram system, closed-form 1x1/2x2 Hermitian
 eigenvalues, the rank-based branch-free water-filling of
 :func:`~..comm.waterfilling.doWF_jit`, and the per-BS normalization —
-with one f32 capacity sum per grid step as the only HBM traffic.
+with one f32 capacity sum per program as the only device-memory
+traffic.
 
 Two algebraic collapses make the kernel far smaller than the XLA
 chain it mirrors:
@@ -31,9 +33,13 @@ chain it mirrors:
   instance of :func:`~.cplx.hpd_inv`'s recursion, for any block size.
 
 The math is pinned per-batch against the XLA chain on identical
-channel realizations across the geometry menu (inject mode,
-tests/test_bd_pallas.py); the XLA path (``comm/batched.py``) remains
-the fully-general (non-square, ragged) tool.
+channel realizations across the geometry menu (tests/test_bd_pallas.py;
+:meth:`MonteCarloBD.reference_caps` draws the same channels from the
+same generator); the XLA path (``comm/batched.py``) remains the
+fully-general (non-square, ragged) tool. Streams are keyed as in
+:mod:`.ia_pallas`: (seed, absolute repetition) and (absolute element,
+channel entry). ``interpret=True`` runs the identical kernel under the
+Pallas interpreter on the CPU.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .mc_pallas import _u11
+from ..parallel.mesh import shard_reps
+from .counter_rng import channel_planes, gauss_half
+from .pallas_common import (TRITON_PARAMS, block_elements,
+                            check_block, require_kernel_backend)
 from .pallas_planes import (EPS, cabs2, gram_full, gram_rows,
                             herm2_eigvals, herm_solve_cols_ldl, mat_H,
                             mat_mul, mat_sub)
@@ -54,7 +62,6 @@ __all__ = ["MonteCarloBD", "CH_PLANES"]
 # antennas, Nt_total=6 — the contract for any geometry is the instance
 # property ``MonteCarloBD.num_planes`` (= (K*Nr_u)^2 * 2)
 CH_PLANES = 6 * 6 * 2            # 72
-_CLIP = 0.99999994
 
 
 class MonteCarloBD:
@@ -64,17 +71,15 @@ class MonteCarloBD:
     is the K=3, Nr_u=2 point).
 
     ``tile`` rows x ``lane`` lanes of independent realizations per
-    grid step. Solves per call: ``reps * num_tiles * tile * lane``.
+    program (powers of two); ``num_tiles`` programs per repetition.
+    Solves per call: ``reps * num_tiles * tile * lane``.
     """
 
-    def __init__(self, tile: int = 8, lane: int = 512,
+    def __init__(self, tile: int = 1, lane: int = 128,
                  iPu: float = 10.0 / 3, noise_var: float = 1.0,
                  K: int = 3, Nr_u: int = 2,
                  mode: str = "normalized") -> None:
-        if tile < 8 or tile % 8:
-            raise ValueError("tile must be a multiple of 8")
-        if lane < 128 or lane % 128:
-            raise ValueError("lane must be a multiple of 128")
+        check_block(tile, lane)
         if K < 2:
             raise ValueError("K must be >= 2")
         if Nr_u not in (1, 2):
@@ -106,9 +111,7 @@ class MonteCarloBD:
         K, NR = self._K, self._NR
         NT = K * NR
 
-        def gauss(bits):
-            return jax.lax.erf_inv(jnp.clip(_u11(bits), -_CLIP, _CLIP))
-
+        gauss = gauss_half
         # H as an (NT, NT) plane matrix; components ~ N(0, 1/2) per part
         H = []
         idx = 0
@@ -228,143 +231,94 @@ class MonteCarloBD:
     # ------------------------------------------------------------------
 
     def build(self, reps: int, num_tiles: int, mesh=None,
-              axis: str = "mc"):
+              axis: str = "mc", interpret: bool = False):
         """Jitted ``(seed:int32[, start]) -> (reps, num_tiles) f32``
-        per-tile capacity sums; channels from the hardware PRNG with
-        streams keyed by the ABSOLUTE repetition index.
+        per-tile capacity sums; channels drawn on device with streams
+        keyed by the ABSOLUTE repetition index.
 
         ``mesh``: shard the rep axis over ``mesh.shape[axis]`` devices
         with :func:`shard_map` — each device runs the same kernel over
         its contiguous rep slice with ``start`` advanced by
         ``device_index * reps_local``, so the result is BIT-IDENTICAL
         to the unsharded call (the absolute-index stream contract of
-        :meth:`.mc_pallas.MonteCarloOfdmTdl.build`; SURVEY §2.11 P2,
-        reference dispatch runner.py:1774-1886)."""
-        if mesh is None:
-            call = self._make_prng_call(reps, num_tiles)
+        :func:`~pyphysim_tpu.parallel.shard_reps`).
 
-            @jax.jit
-            def run(seed, start=0):
-                seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                                   jnp.asarray(start, jnp.int32)])
-                return call(seeds)
+        ``interpret``: run the kernel under the Pallas interpreter
+        (any backend). Without it, a backend other than the GPU raises.
+        """
+        require_kernel_backend(interpret)
 
-            return run
+        def prologue(seed, start=0):
+            return (jnp.stack([jnp.asarray(seed, jnp.int32),
+                               jnp.asarray(start, jnp.int32)]),)
 
-        from jax import shard_map
-        from jax.sharding import NamedSharding, PartitionSpec as P
+        return shard_reps(
+            lambda n: self._make_call(n, num_tiles, interpret), prologue,
+            reps, mesh, axis)
 
-        n_dev = int(mesh.shape[axis])
-        if reps % n_dev:
-            raise ValueError(f"reps {reps} not divisible by mesh axis "
-                             f"{axis!r} size {n_dev}")
-        reps_local = reps // n_dev
-        call = self._make_prng_call(reps_local, num_tiles)
-
-        def local(seeds):
-            i = jax.lax.axis_index(axis)
-            seeds = seeds.at[1].add(i * reps_local)
-            return call(seeds)
-
-        sharded = shard_map(local, mesh=mesh, in_specs=(P(),),
-                            out_specs=P(axis), check_vma=False)
-        replicated = NamedSharding(mesh, P())
-
-        @jax.jit
-        def run(seed, start=0):
-            seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                               jnp.asarray(start, jnp.int32)])
-            out = sharded(seeds)
-            return jax.lax.with_sharding_constraint(out, replicated)
-
-        return run
-
-    def _make_prng_call(self, reps: int, num_tiles: int):
-        """The raw hardware-PRNG pallas_call over a (reps, num_tiles)
-        grid; ``seed_ref = [seed, start]`` keys every stream by the
-        ABSOLUTE repetition index ``start + r``."""
+    def _make_call(self, reps: int, num_tiles: int, interpret: bool):
+        """The pallas_call over a (reps, num_tiles) grid;
+        ``seeds = [seed, start]`` keys every stream by the ABSOLUTE
+        repetition index ``start + r``."""
         tile, lane = self._tile, self._lane
-        num_planes = self.num_planes
+        n_entries = self.num_planes // 2
 
         def kernel(seed_ref, out_ref):
             r = pl.program_id(0)
             s = pl.program_id(1)
-            r_abs = seed_ref[1] + r
-            pltpu.prng_seed(seed_ref[0], r_abs * num_tiles + s)
-            planes = [pltpu.prng_random_bits((tile, lane))
-                      for _ in range(num_planes)]
-            out_ref[r, s] = jnp.sum(self._solve_block(planes))
+            attempt = (seed_ref[1] + r).astype(jnp.uint32)
+            planes = channel_planes(seed_ref[0].astype(jnp.uint32),
+                                    attempt, block_elements(s, tile, lane),
+                                    n_entries)
+            out_ref[...] = jnp.sum(self._solve_block(planes))
 
         return pl.pallas_call(
             kernel,
             grid=(reps, num_tiles),
             out_shape=jax.ShapeDtypeStruct((reps, num_tiles),
                                            jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        )
-
-    def build_inject(self, reps: int, num_tiles: int,
-                     interpret: bool = True, mesh=None,
-                     axis: str = "mc"):
-        """Same math with the channel bits supplied as ONE uint32
-        tensor ``(reps, num_tiles * tile, num_planes * lane)`` (plane i
-        at lanes [i*lane, (i+1)*lane)): ``fn(ch_bits) ->
-        (reps, num_tiles) f32``.
-
-        ``mesh`` shards the rep axis of the bit tensor — the
-        CPU-testable twin of the sharded TPU-PRNG mode (the bits carry
-        the absolute attempt index, so sharded == unsharded
-        bit-identically)."""
-        tile, lane = self._tile, self._lane
-        num_planes = self.num_planes
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            n_dev = int(mesh.shape[axis])
-            if reps % n_dev:
-                raise ValueError(f"reps {reps} not divisible by mesh "
-                                 f"axis {axis!r} size {n_dev}")
-            local = self.build_inject(reps // n_dev, num_tiles,
-                                      interpret)
-            sharded = shard_map(local, mesh=mesh, in_specs=(P(axis),),
-                                out_specs=P(axis), check_vma=False)
-            replicated = NamedSharding(mesh, P())
-
-            @jax.jit
-            def run(ch_bits):
-                out = sharded(ch_bits)
-                return jax.lax.with_sharding_constraint(out, replicated)
-
-            return run
-
-        def kernel(ch_ref, out_ref):
-            r = pl.program_id(0)
-            s = pl.program_id(1)
-            block = ch_ref[0]
-            planes = [block[:, i * lane:(i + 1) * lane]
-                      for i in range(num_planes)]
-            out_ref[r, s] = jnp.sum(self._solve_block(planes))
-
-        call = pl.pallas_call(
-            kernel,
-            grid=(reps, num_tiles),
-            out_shape=jax.ShapeDtypeStruct((reps, num_tiles),
-                                           jnp.float32),
-            in_specs=[
-                pl.BlockSpec((1, tile, num_planes * lane),
-                             lambda r, s: (r, s, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
+            in_specs=[pl.BlockSpec((2,), lambda r, s: (0,))],
+            out_specs=pl.BlockSpec((None, None), lambda r, s: (r, s)),
+            backend="triton",
+            compiler_params=TRITON_PARAMS,
             interpret=interpret,
+            name="bd_capacity",
         )
 
-        def run(ch_bits):
-            return call(ch_bits.astype(jnp.int32))
+    def reference_caps(self, reps: int, num_tiles: int, seed, start=0):
+        """``(reps, num_tiles)`` capacity sums of the same repetitions
+        as :meth:`build` from the XLA chain
+        ``comm.batched.bd_precoders_batched`` (float32 products at
+        ``highest`` precision) on the same channels drawn from the same
+        generator, with the same scale-relative degeneracy guard."""
+        from ..comm.batched import bd_precoders_batched
+        from .cplx import CArray
 
-        return run
+        K, NT = self._K, self._K * self._NR
+        n = num_tiles * self._tile * self._lane
+        elem = jnp.arange(n, dtype=jnp.uint32)
+        seed = jnp.asarray(seed, jnp.int32).astype(jnp.uint32)
+        nv, ipu, mode = self._nv, self._iPu, self._mode
+
+        def solve(h):
+            _, Ms, Sigma = bd_precoders_batched(h, K, ipu, nv, mode)
+            p = jnp.sum(Ms.re ** 2 + Ms.im ** 2, axis=-2)
+            cap = jnp.sum(jnp.log2(1.0 + p * Sigma ** 2 / nv))
+            ok = jnp.min(Sigma) > 1e-6 * jnp.max(Sigma)
+            return jnp.where(jnp.isfinite(cap) & ok, cap, 0.0)
+
+        def one(attempt):
+            planes = channel_planes(seed, attempt.astype(jnp.uint32), elem,
+                                    self.num_planes // 2)
+            re = jnp.stack([gauss_half(b) for b in planes[0::2]], -1)
+            im = jnp.stack([gauss_half(b) for b in planes[1::2]], -1)
+            H = CArray(re.reshape(n, NT, NT), im.reshape(n, NT, NT))
+            with jax.default_matmul_precision("highest"):
+                caps = jax.vmap(solve)(H)
+            return jnp.sum(caps.reshape(num_tiles, -1), axis=-1)
+
+        attempts = jnp.asarray(start, jnp.int32) + jnp.arange(reps)
+        return jax.lax.map(one, attempts)
 
     # ------------------------------------------------------------------
 

@@ -1,17 +1,17 @@
-"""Real-pair complex arithmetic — the foundation of the TPU compute path.
+"""Real-pair complex arithmetic — the foundation of the device compute path.
 
-The TPU backend (and the MXU in particular) has no native complex dtype
+The original accelerator backend had no native complex dtype
 support; XLA complex lowering is unavailable on this target (probed
 empirically: any ``complex64`` op raises UNIMPLEMENTED). Instead of
 translating the reference's numpy-complex code, every on-device complex
 tensor in this framework is a :class:`CArray` — a pytree of two real arrays
 ``(re, im)`` — and complex arithmetic is built explicitly from real ops:
 
-  * elementwise ops ride the VPU on float32/bfloat16 lanes,
-  * complex matmul lowers to THREE real MXU matmuls (Gauss/Karatsuba trick)
+  * elementwise ops run on float32/bfloat16 lanes,
+  * complex matmul lowers to THREE real matmuls (Gauss/Karatsuba trick)
     instead of four,
   * FFTs become DFT-matrix matmuls (`pyphysim_tpu.ops.fft`) that run on the
-    MXU — far faster on TPU than a butterfly network of gathers,
+    matrix units — faster than a butterfly network of gathers,
   * complex linear solves / eigendecompositions lower to real operations on
     the standard 2Nx2N isomorphic embedding ``[[Ar, -Ai], [Ai, Ar]]``.
 
@@ -20,7 +20,7 @@ jits, shards and pytree-flattens with zero glue. Host boundaries convert
 to/from numpy complex with :func:`from_numpy` / :meth:`CArray.to_numpy`.
 
 This file replaces nothing in the reference (pyphysim is numpy-complex
-throughout); it exists because the TPU-native design demands it.
+throughout); it exists because the real-pair design demands it.
 """
 
 from __future__ import annotations
@@ -277,7 +277,7 @@ def exp(x: CArray) -> CArray:
 
 
 # ---------------------------------------------------------------------------
-# Matmul & einsum (MXU path)
+# Matmul & einsum
 # ---------------------------------------------------------------------------
 
 
@@ -286,7 +286,7 @@ def matmul(a, b, *, precision=None) -> CArray:
 
     ``(Ar + jAi)(Br + jBi)``: with ``t1 = Ar Br``, ``t2 = Ai Bi`` and
     ``t3 = (Ar + Ai)(Br + Bi)``, the result is ``(t1 - t2) + j(t3 - t1 - t2)``
-    — 25% fewer MXU FLOPs than the naive four-matmul form.
+    — 25% fewer matmul FLOPs than the naive four-matmul form.
     """
     a = _coerce(a)
     b = _coerce(b)
@@ -331,10 +331,10 @@ def _embed(a: CArray) -> jnp.ndarray:
 
 def _inv2x2(a: CArray) -> CArray:
     """Closed-form 2x2 complex inverse (adjugate / determinant):
-    pure elementwise VPU arithmetic. The general path's real-embedded LU
+    pure elementwise arithmetic. The general path's real-embedded LU
     is a long serial chain of tiny kernels — for the 2x2 matrices that
     dominate the IA/MIMO hot loops the adjugate is ~an order of
-    magnitude faster on TPU and exact in the same f32 model."""
+    magnitude faster on device and exact in the same f32 model."""
     # Scale-normalize by the max |entry| (same scheme as _eigh2x2) so
     # the singularity guard below is scale-RELATIVE: the comp_BD-style
     # scenarios run at ~1e-4 channel scales, where an absolute floor
@@ -366,7 +366,7 @@ def _inv2x2(a: CArray) -> CArray:
 def solve(a: CArray, b: CArray) -> CArray:
     """Solve ``A x = b`` for complex A, b.
 
-    ``n <= 2`` uses the closed-form adjugate inverse (elementwise VPU
+    ``n <= 2`` uses the closed-form adjugate inverse (elementwise
     work — the small-matrix hot path of the IA solvers); larger systems
     go through the real embedding and LU. Batched over leading dims.
     ``b`` may be a matrix (..., n, k) or a vector (..., n).
@@ -417,7 +417,7 @@ def hpd_inv(a: CArray) -> CArray:
     [-S^-1 AiB^H, S^-1]]`` with ``Ai = A^-1``, ``AiB = Ai B`` and the
     Schur complement ``S = D - B^H AiB`` (itself HPD), recursing until
     the closed-form ``n <= 2`` adjugate. Everything is batched matmuls
-    and elementwise VPU arithmetic — no LU pivoting chain, no eigh
+    and elementwise arithmetic — no LU pivoting chain, no eigh
     sweeps — which is why the BD hot path uses it to invert the
     ``tilde_H tilde_H^H`` Gram instead of a full-matrices SVD
     (reference blockdiagonalization.py:272-363 takes the SVD route).
@@ -475,7 +475,7 @@ def pinv(a: CArray, rcond: float = 1e-3, refine: int = 2) -> CArray:
 
 def _eigh2x2(a: CArray):
     """Closed-form 2x2 Hermitian eigendecomposition (ascending order):
-    pure elementwise VPU arithmetic, replacing the real-embedded 4x4
+    pure elementwise arithmetic, replacing the real-embedded 4x4
     LAPACK eigh on the 2x2 matrices that dominate the small-solver hot
     paths (Bkl covariances, whitening, 2x2 Gram SVDs). The second
     eigenvector is the EXACT orthogonal complement of the first, so V
@@ -686,7 +686,7 @@ def eigh(a: CArray, *, tie_break: bool = True):
 
 def csqrt(z: CArray) -> CArray:
     """Principal complex square root, elementwise:
-    ``sqrt(r) * exp(j*theta/2)`` — pure VPU work (abs/atan2/cos/sin)."""
+    ``sqrt(r) * exp(j*theta/2)`` — pure elementwise work (abs/atan2/cos/sin)."""
     z = _coerce(z)
     r = jnp.sqrt(z.abs())
     half = 0.5 * z.angle()
@@ -725,7 +725,7 @@ def _eig2x2(a: CArray):
 def ceig(a: CArray, qr_iters: int = 60, inv_iters: int = 4):
     """Eigendecomposition of a GENERAL (non-Hermitian) complex matrix.
 
-    ``jnp.linalg.eig`` is CPU-only in JAX — there is no TPU lowering for
+    ``jnp.linalg.eig`` is CPU-only in JAX — there is no accelerator lowering for
     the general eigenproblem — so this builds one from ops that DO run on
     the device: the analytic 2x2 formula when ``n == 2`` (the common case
     for the 3-user IA closed form, reference algorithms.py:42-265), and
@@ -744,7 +744,7 @@ def ceig(a: CArray, qr_iters: int = 60, inv_iters: int = 4):
     if n == 2:
         return _eig2x2(a)
 
-    # The shifted-QR sweep is precision-critical: the TPU MXU's default
+    # The shifted-QR sweep is precision-critical: the accelerator's default
     # bf16 passes (~0.4% rel error) swamp the shift-offset margin of the
     # Cholesky-QR and produce NaNs. These matrices are tiny — full f32
     # multiplies cost nothing.

@@ -1,14 +1,14 @@
-"""DFT on the MXU: matmul-based FFT for real-pair complex tensors.
+"""DFT as a matmul: matmul-based FFT for real-pair complex tensors.
 
-TPU-native replacement for ``np.fft.fft/ifft`` in the OFDM chain (reference:
-pyphysim/modulators/ofdm.py:370-429 uses numpy FFT row-wise). On TPU the
+Device-native replacement for ``np.fft.fft/ifft`` in the OFDM chain (reference:
+pyphysim/modulators/ofdm.py:370-429 uses numpy FFT row-wise). On an accelerator the
 systolic array makes an O(N^2) DFT *matmul* faster than a butterfly network
 for the OFDM-sized transforms used here (N = 64..4096), because the matmul
-runs at MXU speed while a radix butterfly is a long dependency chain of
+runs at matrix-unit speed while a radix butterfly is a long dependency chain of
 vector shuffles. Two modes:
 
   * direct:    X = x @ W          — one complex (N, N) matmul
-                                    (3 real MXU matmuls via the Gauss trick)
+                                    (3 real matmuls via the Gauss trick)
   * four-step: N = N1 * N2        — two skinny matmuls + a twiddle,
                                     O(N (N1 + N2)) work; picked automatically
                                     for N >= FOUR_STEP_MIN when N factors
@@ -17,7 +17,7 @@ vector shuffles. Two modes:
 DFT matrices are built once on host in float64 and cached per (N, dtype).
 Transforms apply over the LAST axis and batch over all leading axes — the
 batch dimension becomes the matmul M dimension, which is exactly what keeps
-the MXU full at Monte Carlo batch sizes.
+the matrix units full at Monte Carlo batch sizes.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def fft(x: CArray, n: Optional[int] = None,
     """DFT over the last axis (batched over leading axes), numpy ``fft``
     convention (no normalization).
 
-    ``precision`` controls the MXU accumulation mode: the TPU default
+    ``precision`` controls the matmul accumulation mode: the device default
     (bf16 inputs) gives ~0.4% relative error, visible in equalization —
     so this defaults to HIGHEST (true fp32). Pass
     ``jax.lax.Precision.DEFAULT`` to trade accuracy for throughput.

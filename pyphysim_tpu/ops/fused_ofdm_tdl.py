@@ -122,11 +122,11 @@ class FusedOfdmTdl:
                 / math.sqrt(ps)                             # (n, used)
             N = ifft @ dft                                  # (L, used)
 
+            # host (numpy) constants: a jnp array made while tracing
+            # would be a tracer, and the cache would leak it
             self._cache[key] = (
-                CArray(jnp.asarray(M.real, dtype),
-                       jnp.asarray(M.imag, dtype)),
-                CArray(jnp.asarray(N.real, dtype),
-                       jnp.asarray(N.imag, dtype)))
+                CArray(np.asarray(M.real, dtype), np.asarray(M.imag, dtype)),
+                CArray(np.asarray(N.real, dtype), np.asarray(N.imag, dtype)))
         return self._cache[key]
 
     def _diag_matrix(self, dtype) -> CArray:
@@ -138,8 +138,8 @@ class FusedOfdmTdl:
             bins = o.get_used_subcarrier_indexes() % o.fft_size
             phase = (-2.0 * np.pi / o.fft_size) * np.outer(self._tap_idx,
                                                            bins)
-            self._cache[key] = CArray(jnp.asarray(np.cos(phase), dtype),
-                                      jnp.asarray(np.sin(phase), dtype))
+            self._cache[key] = CArray(np.asarray(np.cos(phase), dtype),
+                                      np.asarray(np.sin(phase), dtype))
         return self._cache[key]
 
     @property

@@ -1,22 +1,24 @@
 """Monolithic Max-SINR interference-alignment Monte-Carlo Pallas kernel.
 
-VMEM-resident counterpart of the batched IA sweep
+Register-resident counterpart of the batched IA sweep
 (``ia/batched.max_sinr_solve`` + ``calc_sinrs`` + ``sum_capacity`` —
 reference ``apps/ia/simulate_ia.py`` / ``algorithms.MaxSinrIASolver``,
 algorithms.py:1243-1852) for the 2x2, Ns=1 scenario family the bench
 and apps sweep, geometry-general over the user count ``K`` (the bench
 point is K=3): each (row, lane) element of a grid block is one
 independent Monte Carlo realization — the KxKx2x2 channel is drawn from the
-in-kernel TPU PRNG, the deterministic 'svd' initialization, the
-fixed-iteration forward/reverse Max-SINR recursion and the final
-SINR/capacity reduction all run in VMEM as pure plane arithmetic
-(closed-form 2x2 Hermitian solves — no LAPACK, no gathers), and the
-only HBM traffic is one f32 capacity sum per grid step.
+in-kernel counter-based generator (:mod:`.counter_rng`), the
+deterministic 'svd' initialization, the fixed-iteration forward/reverse
+Max-SINR recursion and the final SINR/capacity reduction all run in
+registers as pure plane arithmetic (closed-form 2x2 Hermitian solves —
+no LAPACK, no gathers), and the only device-memory traffic is one f32
+capacity sum per program.
 
 The XLA path (``ia/batched.py``) stays the general-geometry tool; this
-kernel is the speed-of-light instance of its hottest configuration,
-pinned against it per-realization in tests (inject mode). All the
-per-element math mirrors ``max_sinr_solve`` exactly:
+kernel is the fast instance of its hottest configuration, pinned
+against it per-realization in tests (:meth:`MonteCarloMaxSinr.reference_caps`
+draws the same channels from the same generator). All the per-element
+math mirrors ``max_sinr_solve`` exactly:
 
 * svd init: F_k = dominant right singular vector of H_kk, here the
   closed-form dominant eigenvector of the 2x2 Hermitian Gram
@@ -29,9 +31,12 @@ per-element math mirrors ``max_sinr_solve`` exactly:
 * SINR: ``P |u^H d|^2 / re(u^H Bkl u)`` and capacity
   ``sum_k log2(1 + sinr_k)`` (ia/batched.py:556-581).
 
-Randomness is injectable (``build_inject``) so the CPU interpreter pins
-the full bit->capacity pipeline against the XLA solver on identical
-channel realizations.
+Randomness: the key is (seed, absolute repetition index) and the
+counter (absolute element index within the repetition, channel entry):
+each call yields the (re, im) bits of one complex channel entry, so the
+draws do not depend on the block shape, the chunking of repetitions or
+the device. ``interpret=True`` runs the identical kernel under the
+Pallas interpreter on the CPU.
 """
 
 from __future__ import annotations
@@ -39,9 +44,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .mc_pallas import _u11
+from ..parallel.mesh import shard_reps
+from .counter_rng import channel_planes, gauss_half
+from .pallas_common import (TRITON_PARAMS, block_elements,
+                            check_block, require_kernel_backend)
 from .pallas_planes import (EPS as _EPS, cabs2 as _cabs2, cadd as _cadd,
                             cmul as _cmul, cmulc as _cmulc,
                             cscale as _cscale, csub as _csub)
@@ -53,7 +60,6 @@ __all__ = ["MonteCarloMaxSinr", "CH_PLANES"]
 # geometry is the instance property ``MonteCarloMaxSinr.num_planes``
 # (= K*K*N*N*2)
 CH_PLANES = 3 * 3 * 4 * 2   # 72: (k, j, entry, re/im)
-_CLIP = 0.99999994
 
 
 def _matvec(M, v):
@@ -225,19 +231,17 @@ class MonteCarloMaxSinr:
     general plane program (full-matrix Bkl, unrolled LDL^H solves,
     orthogonal-iteration init).
 
-    ``tile`` rows x ``lane`` lanes of independent realizations per grid
-    step; ``num_tiles`` tiles per repetition. Solves per call:
-    ``reps * num_tiles * tile * lane``.
+    ``tile`` rows x ``lane`` lanes of independent realizations per
+    program (powers of two; one realization per thread keeps the whole
+    recursion in registers); ``num_tiles`` programs per repetition.
+    Solves per call: ``reps * num_tiles * tile * lane``.
     """
 
-    def __init__(self, tile: int = 8, lane: int = 512,
+    def __init__(self, tile: int = 1, lane: int = 128,
                  iterations: int = 10, P: float = 1.0,
                  K: int = 3, N: int = 2, Ns: int = 1,
                  init_iters: int = 10) -> None:
-        if tile < 8 or tile % 8:
-            raise ValueError("tile must be a multiple of 8")
-        if lane < 128 or lane % 128:
-            raise ValueError("lane must be a multiple of 128")
+        check_block(tile, lane)
         if K < 2:
             raise ValueError("K must be >= 2")
         if N < 2:
@@ -270,10 +274,8 @@ class MonteCarloMaxSinr:
         P = jnp.float32(self._P)
         nv = noise_var
 
-        def gauss(bits):
-            # channel components ~ N(0, 1/2) per part: erf_inv(u11)
-            return jax.lax.erf_inv(
-                jnp.clip(_u11(bits), -_CLIP, _CLIP))
+        # channel components ~ N(0, 1/2) per part
+        gauss = gauss_half
 
         # H[k][j] = 2x2 complex matrix of planes
         H = [[None] * K for _ in range(K)]
@@ -355,8 +357,7 @@ class MonteCarloMaxSinr:
         nv = noise_var
         inv_sqrt_ns = jnp.float32(1.0 / math.sqrt(Ns))
 
-        def gauss(bits):
-            return jax.lax.erf_inv(jnp.clip(_u11(bits), -_CLIP, _CLIP))
+        gauss = gauss_half
 
         H = [[None] * K for _ in range(K)]
         idx = 0
@@ -423,152 +424,100 @@ class MonteCarloMaxSinr:
     # ------------------------------------------------------------------
 
     def build(self, reps: int, num_tiles: int, mesh=None,
-              axis: str = "mc"):
+              axis: str = "mc", interpret: bool = False):
         """Jitted ``(seed:int32, noise_var[, start]) ->
         (reps, num_tiles) f32`` per-tile sum-capacity; channels drawn
-        from the hardware PRNG with streams keyed by the ABSOLUTE
-        repetition index (runner bulk-path contract).
+        on device with streams keyed by the ABSOLUTE repetition index
+        (runner bulk-path contract).
 
         ``mesh``: shard the rep axis over ``mesh.shape[axis]`` devices
         with :func:`shard_map` — each device runs the same kernel over
         its contiguous rep slice with ``start`` advanced by
         ``device_index * reps_local``, so the result is BIT-IDENTICAL
         to the unsharded call (the absolute-index stream contract of
-        :meth:`.mc_pallas.MonteCarloOfdmTdl.build`; SURVEY §2.11 P2,
-        reference dispatch runner.py:1774-1886)."""
-        if mesh is None:
-            call = self._make_prng_call(reps, num_tiles)
+        :func:`~pyphysim_tpu.parallel.shard_reps`).
 
-            @jax.jit
-            def run(seed, noise_var, start=0):
-                seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                                   jnp.asarray(start, jnp.int32)])
-                return call(seeds, jnp.reshape(
-                    jnp.asarray(noise_var, jnp.float32), (1,)))
+        ``interpret``: run the kernel under the Pallas interpreter
+        (any backend). Without it, a backend other than the GPU raises.
+        """
+        require_kernel_backend(interpret)
 
-            return run
-
-        from jax import shard_map
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        n_dev = int(mesh.shape[axis])
-        if reps % n_dev:
-            raise ValueError(f"reps {reps} not divisible by mesh axis "
-                             f"{axis!r} size {n_dev}")
-        reps_local = reps // n_dev
-        call = self._make_prng_call(reps_local, num_tiles)
-
-        def local(seeds, nv):
-            i = jax.lax.axis_index(axis)
-            seeds = seeds.at[1].add(i * reps_local)
-            return call(seeds, nv)
-
-        sharded = shard_map(local, mesh=mesh, in_specs=(P(), P()),
-                            out_specs=P(axis), check_vma=False)
-        replicated = NamedSharding(mesh, P())
-
-        @jax.jit
-        def run(seed, noise_var, start=0):
+        def prologue(seed, noise_var, start=0):
             seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
                                jnp.asarray(start, jnp.int32)])
-            out = sharded(seeds, jnp.reshape(
-                jnp.asarray(noise_var, jnp.float32), (1,)))
-            return jax.lax.with_sharding_constraint(out, replicated)
+            return seeds, jnp.reshape(
+                jnp.asarray(noise_var, jnp.float32), (1,))
 
-        return run
+        return shard_reps(
+            lambda n: self._make_call(n, num_tiles, interpret), prologue,
+            reps, mesh, axis)
 
-    def _make_prng_call(self, reps: int, num_tiles: int):
-        """The raw hardware-PRNG pallas_call over a (reps, num_tiles)
-        grid; ``seed_ref = [seed, start]`` keys every stream by the
-        ABSOLUTE repetition index ``start + r``."""
+    def _make_call(self, reps: int, num_tiles: int, interpret: bool):
+        """The pallas_call over a (reps, num_tiles) grid;
+        ``seeds = [seed, start]`` keys every stream by the ABSOLUTE
+        repetition index ``start + r``."""
         tile, lane = self._tile, self._lane
-        num_planes = self.num_planes
+        n_entries = self.num_planes // 2
 
         def kernel(seed_ref, nv_ref, out_ref):
             r = pl.program_id(0)
             s = pl.program_id(1)
-            r_abs = seed_ref[1] + r
-            pltpu.prng_seed(seed_ref[0], r_abs * num_tiles + s)
-            planes = [pltpu.prng_random_bits((tile, lane))
-                      for _ in range(num_planes)]
-            out_ref[r, s] = self._solve_block(planes, nv_ref[0])
+            attempt = (seed_ref[1] + r).astype(jnp.uint32)
+            planes = channel_planes(seed_ref[0].astype(jnp.uint32),
+                                    attempt, block_elements(s, tile, lane),
+                                    n_entries)
+            out_ref[...] = self._solve_block(planes, nv_ref[0])
 
         return pl.pallas_call(
             kernel,
             grid=(reps, num_tiles),
             out_shape=jax.ShapeDtypeStruct((reps, num_tiles),
                                            jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                      pl.BlockSpec(memory_space=pltpu.SMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        )
-
-    def build_inject(self, reps: int, num_tiles: int,
-                     interpret: bool = True, mesh=None,
-                     axis: str = "mc"):
-        """Same math with the channel bits supplied as ONE uint32
-        tensor ``(reps, num_tiles * tile, num_planes * lane)`` (plane i
-        occupies lanes [i*lane, (i+1)*lane)):
-        ``fn(ch_bits, noise_var) -> (reps, num_tiles) f32``.
-
-        ``mesh`` shards the rep axis of the bit tensor — the
-        CPU-testable twin of the sharded TPU-PRNG mode (the bits carry
-        the absolute attempt index, so sharded == unsharded
-        bit-identically)."""
-        tile, lane = self._tile, self._lane
-        num_planes = self.num_planes
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            n_dev = int(mesh.shape[axis])
-            if reps % n_dev:
-                raise ValueError(f"reps {reps} not divisible by mesh "
-                                 f"axis {axis!r} size {n_dev}")
-            local = self.build_inject(reps // n_dev, num_tiles,
-                                      interpret)
-            sharded = shard_map(local, mesh=mesh,
-                                in_specs=(P(axis), P()),
-                                out_specs=P(axis), check_vma=False)
-            replicated = NamedSharding(mesh, P())
-
-            @jax.jit
-            def run(ch_bits, noise_var):
-                out = sharded(ch_bits, jnp.asarray(noise_var,
-                                                   jnp.float32))
-                return jax.lax.with_sharding_constraint(out, replicated)
-
-            return run
-
-        def kernel(nv_ref, ch_ref, out_ref):
-            r = pl.program_id(0)
-            s = pl.program_id(1)
-            block = ch_ref[0]
-            planes = [block[:, i * lane:(i + 1) * lane]
-                      for i in range(num_planes)]
-            out_ref[r, s] = self._solve_block(planes, nv_ref[0])
-
-        call = pl.pallas_call(
-            kernel,
-            grid=(reps, num_tiles),
-            out_shape=jax.ShapeDtypeStruct((reps, num_tiles),
-                                           jnp.float32),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((1, tile, num_planes * lane),
-                             lambda r, s: (r, s, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
+            in_specs=[pl.BlockSpec((2,), lambda r, s: (0,)),
+                      pl.BlockSpec((1,), lambda r, s: (0,))],
+            out_specs=pl.BlockSpec((None, None), lambda r, s: (r, s)),
+            backend="triton",
+            compiler_params=TRITON_PARAMS,
             interpret=interpret,
+            name="ia_max_sinr",
         )
 
-        def run(ch_bits, noise_var):
-            return call(jnp.reshape(
-                jnp.asarray(noise_var, jnp.float32), (1,)),
-                ch_bits.astype(jnp.int32))
+    def reference_caps(self, reps: int, num_tiles: int, seed, noise_var,
+                       start=0):
+        """``(reps, num_tiles)`` capacity sums of the same repetitions
+        as :meth:`build` from the XLA solver ``ia.batched.max_sinr_solve``
+        (init 'svd', float32 products at ``highest`` precision), fed the
+        same channels drawn from the same generator. For (N, Ns) = (2, 1)
+        the kernel's closed-form init IS the dominant right singular
+        vector, so the two recursions agree to rounding."""
+        from ..ia.batched import calc_sinrs, max_sinr_solve, sum_capacity
+        from .cplx import CArray
 
-        return run
+        K, N, Ns = self._K, self._N, self._Ns
+        n = num_tiles * self._tile * self._lane
+        elem = jnp.arange(n, dtype=jnp.uint32)
+        seed = jnp.asarray(seed, jnp.int32).astype(jnp.uint32)
+        nv = jnp.asarray(noise_var, jnp.float32)
+
+        def solve(h):
+            F, U = max_sinr_solve(h, jax.random.PRNGKey(0), Ns=Ns,
+                                  P=self._P, noise_var=nv,
+                                  iterations=self._iters, init="svd")
+            return sum_capacity(calc_sinrs(h, F, U, nv, self._P, Ns=Ns))
+
+        def one(attempt):
+            planes = channel_planes(seed, attempt.astype(jnp.uint32), elem,
+                                    self.num_planes // 2)
+            re = jnp.stack([gauss_half(b) for b in planes[0::2]], -1)
+            im = jnp.stack([gauss_half(b) for b in planes[1::2]], -1)
+            H = CArray(re.reshape(n, K, K, N, N), im.reshape(n, K, K, N, N))
+            with jax.default_matmul_precision("highest"):
+                caps = jax.vmap(solve)(H)
+            caps = jnp.where(jnp.isfinite(caps), caps, 0.0)
+            return jnp.sum(caps.reshape(num_tiles, -1), axis=-1)
+
+        attempts = jnp.asarray(start, jnp.int32) + jnp.arange(reps)
+        return jax.lax.map(one, attempts)
 
     # ------------------------------------------------------------------
 

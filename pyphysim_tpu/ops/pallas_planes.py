@@ -1,9 +1,10 @@
 """Complex "plane arithmetic" helpers for Pallas Monte Carlo kernels.
 
-Inside a TPU kernel the natural data layout is one (rows, lanes) f32
-plane per real scalar: a complex number is a (re, im) tuple of planes,
-a matrix a nested list of complex tuples. Everything below is pure
-elementwise VPU arithmetic — no gathers, no lax.linalg — shared by the
+Inside a Monte Carlo kernel the natural data layout is one (rows,
+lanes) f32 plane per real scalar, one independent realization per
+element: a complex number is a (re, im) tuple of planes, a matrix a
+nested list of complex tuples. Everything below is pure elementwise
+arithmetic — no gathers, no lax.linalg — shared by the
 Max-SINR IA kernel (:mod:`.ia_pallas`) and the BD CoMP kernel
 (:mod:`.bd_pallas`).
 
@@ -115,7 +116,7 @@ def herm_solve_cols_ldl(B, M):
     plane matrix) and an (n, c) plane matrix M, via an unrolled LDL^H
     factorization — no square roots, n reciprocals, everything else
     mul/add, and n is a small Python int so the whole solve is
-    straight-line VPU arithmetic (the geometry-general replacement for
+    straight-line elementwise arithmetic (the geometry-general replacement for
     the fixed 2x2-block Schur route). Degenerate pivots are floored at
     EPS only to keep the arithmetic finite; callers guard validity with
     their own SCALE-RELATIVE tests (library convention, CLAUDE.md)."""

@@ -4,12 +4,12 @@ The reference handles arbitrarily long streams with a sequential Jakes
 clock plus ``skip_samples_for_next_generation`` (fading_generators.py:
 495-540) and carries the convolution halo in the ``num_taps_with_padding
 - 1`` extra output samples of ``corrupt_data`` (fading.py:1074-1087).
-SURVEY §5's TPU-native equivalent, implemented here: shard the stream
+SURVEY §5's device-native equivalent, implemented here: shard the stream
 over time-blocks across a mesh axis, let every device generate its own
 channel taps directly from the closed-form Jakes state (no sequential
 dependency — ``skip`` is O(1) in the block offset), convolve locally,
 and exchange the ``span - 1``-sample halo with the right neighbor via a
-single ``lax.ppermute`` over ICI.
+single ``lax.ppermute`` between devices.
 
 Output is bit-wise the first ``N`` samples of the unsharded
 ``corrupt_data`` (the trailing halo of the final device is dropped, the

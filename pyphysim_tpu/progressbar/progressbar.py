@@ -11,7 +11,7 @@ Behavioral counterpart of the reference ``pyphysim/progressbar/progressbar.py``:
   * :class:`ProgressbarMultiProcessServer` — same-host variant over a
     multiprocessing managed list (progressbar.py:1517-1687).
 
-In the TPU runner the progress plane is far less load-bearing than in the
+In the device runner the progress plane is far less load-bearing than in the
 reference (one SPMD program replaces thousands of worker tasks), but the
 cross-host classes are kept for parity: a multi-host launcher can still
 aggregate per-host sweep progress on host 0.

@@ -13,7 +13,7 @@ Behavioral counterpart of the reference
   * config-file loading lives in :mod:`.configobjvalidation` (range
     expressions like ``0:5:21`` / ``[0 5 10:2:20]``).
 
-Unchanged by design: this layer is host-side orchestration. The TPU runner
+Unchanged by design: this layer is host-side orchestration. The device runner
 additionally uses :meth:`to_grid` to turn numeric sweep axes into dense
 jnp arrays for vmapping over whole parameter grids at once.
 """
@@ -209,7 +209,7 @@ class SimulationParameters(serialize.JsonSerializable):
         return np.atleast_1d(grid[tuple(slicer)]).ravel()
 
     def to_grid(self, *names: str):
-        """TPU helper: meshgrid of the named sweep axes as dense float
+        """Device helper: meshgrid of the named sweep axes as dense float
         arrays of shape ``(num_variations,)`` flat in unpack order —
         directly vmappable."""
         axes = self.unpacked_parameters

@@ -12,7 +12,7 @@ Behavioral counterpart of the reference ``pyphysim/simulations/results.py``:
     parameter grids (results.py:51-122).
 
 These containers are host-side orchestration (same role as in the
-reference); the TPU runner produces whole *batches* of counter updates from
+reference); the device runner produces whole *batches* of counter updates from
 one jitted program and feeds them in via :meth:`Result.update_batch` /
 :meth:`Result.from_counters`, so per-repetition Python overhead never
 appears on the hot path.
@@ -195,13 +195,17 @@ class Result(serialize.JsonSerializable):
     def update_batch(self, values: np.ndarray,
                      totals: Optional[np.ndarray] = None) -> None:
         """Bulk update from a device-produced batch of per-repetition
-        samples — the TPU-native feeding path (one host call per scan
+        samples — the device feeding path (one host call per scan
         chunk instead of one per repetition).
 
         ``values``/``totals`` are 1-D arrays with one entry per repetition.
-        For CHOICETYPE, ``values`` holds choice indices.
+        For CHOICETYPE, ``values`` holds choice indices. Floating values
+        are accumulated in float64, so the sums do not depend on how the
+        repetitions were split into chunks.
         """
         values = np.asarray(values)
+        if values.dtype.kind == "f":
+            values = values.astype(np.float64)
         n = values.shape[0]
         t = self._update_type_code
         if t == Result.SUMTYPE:

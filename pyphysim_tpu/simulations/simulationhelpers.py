@@ -4,7 +4,7 @@ Behavioral counterpart of the reference
 ``pyphysim/simulations/simulationhelpers.py:22-224``: pick the execution
 mode automatically, run one or many runners, and print result locations.
 
-Mode selection (TPU-native): the reference probed for a live IPython
+Mode selection (device-native): the reference probed for a live IPython
 cluster; here the equivalent of 'parallel hardware is available' is a
 multi-device jax backend — if more than one device is visible the sweep's
 repetition batches are sharded over a mesh, otherwise the single-device
@@ -36,7 +36,7 @@ def simulate_do_what_i_mean(
         reference's multi-runner mode
         (simulationhelpers.py:164-224).
     folder : str, optional
-        Ignored on the TPU build (the reference appended it to workers'
+        Ignored in this build (the reference appended it to workers'
         sys.path so pickled runners could import user code; an SPMD program
         has no such requirement). Accepted for call-site compatibility.
     """

@@ -1,6 +1,6 @@
 """Unit conversions and bit-level codecs.
 
-TPU-native counterpart of the reference's ``pyphysim/util/conversion.py``
+JAX-native counterpart of the reference's ``pyphysim/util/conversion.py``
 (behavioral parity with dB2Linear/linear2dB at conversion.py:139-224, Gray
 codes at conversion.py:229-280, SNR<->EbN0 at conversion.py:282-323 and the
 matrix-of-matrices views at conversion.py:22-136). Everything here is a pure
@@ -107,7 +107,7 @@ def single_matrix_to_matrix_of_matrices(single_matrix,
     ``(r, c)``. If only one of nrows/ncols is given, a 1-D object array of
     row-blocks (or column-blocks) is returned.
 
-    The TPU-native code path never uses object arrays — multiuser channels
+    The device code path never uses object arrays — multiuser channels
     are dense ``(K, K, Nr, Nt)`` tensors — but this helper preserves API
     parity for host-side interop and tests.
     """

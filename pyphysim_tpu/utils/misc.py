@@ -1,6 +1,6 @@
 """Core numeric utilities (layer L0).
 
-TPU-native counterpart of the reference's ``pyphysim/util/misc.py``. The
+JAX-native counterpart of the reference's ``pyphysim/util/misc.py``. The
 hot-path pieces (complex normal RNG, popcount bit-error counting, Q function)
 are pure JAX and jit/vmap-friendly; host-side helpers (GMD, range
 representations, pretty-printing) operate on numpy.
@@ -9,7 +9,7 @@ Reference parity map (behavior, not code):
   * randn_c            -> misc.py:327-389 (circular complex normal)
   * count_bit_errors   -> misc.py:519-566 (popcount of xor; numba ufunc in the
                           reference at misc.py:449-476, here
-                          ``lax.population_count`` — XLA-native on TPU — with a
+                          ``lax.population_count`` — XLA-native on device — with a
                           C popcount extension fallback for host-only builds)
   * qfunc              -> misc.py:569-592
   * gmd                -> misc.py:18-159 (geometric mean decomposition)
@@ -73,7 +73,7 @@ __all__ = [
 def randn_c(key: jax.Array, *shape: int, dtype=jnp.float32):
     """Circularly-symmetric complex normal samples, CN(0, 1), as a
     :class:`~pyphysim_tpu.ops.cplx.CArray` (real-pair representation —
-    the TPU backend has no complex dtypes).
+    the device code path uses real pairs).
 
     JAX-native replacement for the reference ``randn_c`` (misc.py:327-357):
     instead of global numpy state the caller threads an explicit PRNG key
@@ -81,7 +81,7 @@ def randn_c(key: jax.Array, *shape: int, dtype=jnp.float32):
     iid N(0, 1/2) so ``E|x|^2 = 1``.
 
     Low-precision dtypes: generating directly in bfloat16/float16 is ~2x
-    faster than f32-then-cast (half the random bits and HBM), but JAX's
+    faster than f32-then-cast (half the random bits and memory traffic), but JAX's
     low-precision inverse-erf path is measurably biased (bf16: mean
     -0.01109, std 0.99721; f16: mean -0.00180, std 0.99919 — measured
     over 4e6/8e6 samples, |bias| up to 22 sigma). The affine correction
@@ -150,7 +150,7 @@ def xor(a, b):
 def count_bits(n):
     """Popcount of non-negative integer(s).
 
-    On-device this lowers to the TPU-native ``lax.population_count`` —
+    On-device this lowers to ``lax.population_count`` —
     the reference needed a numba ufunc for the same hot path
     (misc.py:449-476). Accepts python ints, numpy arrays or jnp arrays.
     """

@@ -1,12 +1,10 @@
 """Tests for the monolithic Alamouti Monte-Carlo Pallas kernel
-(ops/alamouti_pallas.py), following the mc_pallas strategy: the
-randomness is injectable, so the CPU interpreter pins the full
-bit->error-count pipeline against (a) an independent numpy model fed
-the same bits and (b) the repo's (already test-pinned) mimo.Alamouti +
-QPSK chain fed the same realizations; BER is then checked against the
-chain's empirical corner with honest Monte Carlo statistics. The TPU
-PRNG mode runs the identical ``_simulate_block`` math and is asserted
-on hardware by bench.py."""
+(ops/alamouti_pallas.py): the kernel draws its bits from the counter-based generator, so the tests draw the
+same bits and the interpreted kernel (``interpret=True``) is pinned
+against (a) an independent numpy model fed those bits and (b) the
+repo's (already test-pinned) mimo.Alamouti + QPSK chain fed the same
+realizations; BER is then checked against the chain's empirical corner
+with honest Monte Carlo statistics."""
 
 import math
 
@@ -19,22 +17,42 @@ from pyphysim_tpu.mimo import Alamouti
 from pyphysim_tpu.modulators import QPSK
 from pyphysim_tpu.ops import cplx
 from pyphysim_tpu.ops.alamouti_pallas import MonteCarloAlamouti
-from pyphysim_tpu.ops.mc_pallas import _u11
+from pyphysim_tpu.ops.counter_rng import random_bits, u11
 
 CLIP = 0.99999994
 
 
-def _draw_bits(key, mc, reps, num_tiles):
+SNR = 10.0
+AMP = np.float32(math.sqrt(0.5 / SNR))
+
+
+def _draw_bits(seed, mc, reps, num_tiles, start=0):
+    """The kernel's generator words: per-(rep, lane) channel bits
+    ``(reps, 4, lane)`` (h1re, h1im, h2re, h2im) and per-element data
+    and noise bits ``(reps, num_tiles * tile, lane)``."""
     tile, lane = mc._tile, mc._lane
-    ks = jax.random.split(key, 6)
-    ch = jax.random.bits(ks[0], (reps, 8, lane), jnp.uint32)
-    shape = (reps, num_tiles * tile, lane)
-    planes = [jax.random.bits(k, shape, jnp.uint32) for k in ks[1:]]
-    return (ch, *planes)
+    lanes = jnp.arange(lane, dtype=jnp.uint32)[None, :]
+    elem = (jnp.arange(num_tiles * tile, dtype=jnp.uint32)[:, None] *
+            lane + lanes)
+    out = []
+    for r in range(reps):
+        key = (np.uint32(seed), np.uint32(start + r))
+        ch = jnp.concatenate(random_bits(*key, lanes, 0) +
+                             random_bits(*key, lanes, 1))
+        planes = (random_bits(*key, elem, 2) + random_bits(*key, elem, 3) +
+                  random_bits(*key, elem, 4)[:1])
+        out.append((ch, *planes))
+    return tuple(jnp.stack(x) for x in zip(*out))
+
+
+def _run(mc, seed, reps, num_tiles, start=0, mesh=None):
+    fn = mc.build(reps, num_tiles, mesh=mesh, interpret=True)
+    return np.asarray(fn(jnp.int32(seed), np.float32(SNR),
+                         jnp.int32(start)), np.int64)
 
 
 def _gauss_np(bits):
-    return erfinv(np.clip(np.asarray(_u11(bits)), -CLIP, CLIP))
+    return erfinv(np.clip(np.asarray(u11(bits)), -CLIP, CLIP))
 
 
 def _realizations(mc, ch, d, n1r, n1i, n2r, n2i):
@@ -77,11 +95,9 @@ class TestInjectMatchesModel:
     def test_counts_match_independent_model(self):
         mc = MonteCarloAlamouti(tile=32, lane=128)
         reps, num_tiles = 2, 2
-        bits = _draw_bits(jax.random.PRNGKey(0), mc, reps, num_tiles)
-        amp = np.float32(math.sqrt(0.5 / 10.0))
-        got = np.asarray(mc.build_inject(reps, num_tiles)(*bits, amp),
-                         np.int64)
-        want = _model_counts(mc, *bits, amp)
+        bits = _draw_bits(0, mc, reps, num_tiles, start=5)
+        got = _run(mc, 0, reps, num_tiles, start=5)
+        want = _model_counts(mc, *bits, AMP)
         total = 2 * mc._tile * mc._lane * 2 * 2
         # identical realizations; tolerate a handful of decision-
         # boundary flips from f32-vs-f64 association differences
@@ -94,10 +110,9 @@ class TestInjectMatchesModel:
         sign arithmetic IS the library chain."""
         mc = MonteCarloAlamouti(tile=32, lane=128)
         reps, num_tiles = 2, 1
-        bits = _draw_bits(jax.random.PRNGKey(3), mc, reps, num_tiles)
-        amp = np.float32(math.sqrt(0.5 / 10.0))
-        got = np.asarray(mc.build_inject(reps, num_tiles)(*bits, amp),
-                         np.int64)
+        bits = _draw_bits(3, mc, reps, num_tiles)
+        amp = AMP
+        got = _run(mc, 3, reps, num_tiles)
 
         h1, h2, idx, n1, n2 = _realizations(mc, *bits[:6])
         mod = QPSK()
@@ -125,29 +140,21 @@ class TestInjectMatchesModel:
         (diversity-2 Alamouti 2x1 QPSK, measured ~0.017)."""
         mc = MonteCarloAlamouti(tile=64, lane=256)
         reps, num_tiles = 4, 2
-        bits = _draw_bits(jax.random.PRNGKey(7), mc, reps, num_tiles)
-        amp = np.float32(math.sqrt(0.5 / 10.0))
-        counts = np.asarray(mc.build_inject(reps, num_tiles)(*bits, amp),
-                            np.int64)
+        counts = _run(mc, 7, reps, num_tiles)
         total_bits = reps * num_tiles * mc._tile * mc._lane * 4
         ber = counts.sum() / total_bits
         assert 0.008 < ber < 0.030, ber
 
     def test_stream_contract_channel_constant_per_rep(self):
-        """Per (rep, lane) the channel is shared across tiles: feeding
-        tile-swapped noise/data changes WHICH errors happen but the
-        channel realization stays the per-rep one — verified by the
-        inject twin being a pure function of the channel plane."""
+        """Per (rep, lane) the channel is drawn once and every word is
+        keyed by absolute coordinates: tile 0 of a rep has the same
+        count whether the rep has one tile or two, and rep r of a call
+        at ``start`` is attempt start + r."""
         mc = MonteCarloAlamouti(tile=32, lane=128)
-        bits = _draw_bits(jax.random.PRNGKey(9), mc, 1, 2)
-        amp = np.float32(math.sqrt(0.5 / 10.0))
-        base = np.asarray(mc.build_inject(1, 2)(*bits, amp))
-        # swapping the two tiles' data/noise swaps the per-tile counts
-        swapped = [bits[0]] + [
-            np.concatenate([np.asarray(b)[:, 32:], np.asarray(b)[:, :32]],
-                           axis=1) for b in bits[1:]]
-        out = np.asarray(mc.build_inject(1, 2)(*swapped, amp))
-        assert np.array_equal(out[0, ::-1], base[0])
+        two = _run(mc, 9, 2, 2)
+        one = _run(mc, 9, 2, 1)
+        np.testing.assert_array_equal(two[:, :1], one)
+        np.testing.assert_array_equal(_run(mc, 9, 1, 2, start=1), two[1:])
 
     def test_sharded_inject_bit_identical(self):
         """The rep axis sharded over the 8-device CPU mesh under
@@ -156,12 +163,8 @@ class TestInjectMatchesModel:
         from pyphysim_tpu.parallel import make_mesh
         mc = MonteCarloAlamouti(tile=16, lane=128)
         reps, num_tiles = 8, 2
-        bits = _draw_bits(jax.random.PRNGKey(11), mc, reps, num_tiles)
-        amp = np.float32(math.sqrt(0.5 / 10.0))
-        one = np.asarray(mc.build_inject(reps, num_tiles)(*bits, amp))
-        mesh = make_mesh(8)
-        sharded = np.asarray(
-            mc.build_inject(reps, num_tiles, mesh=mesh)(*bits, amp))
+        one = _run(mc, 11, reps, num_tiles)
+        sharded = _run(mc, 11, reps, num_tiles, mesh=make_mesh(8))
         assert np.array_equal(one, sharded), (one, sharded)
 
 
@@ -177,7 +180,7 @@ class TestAlamoutiMcKernelApp:
             AlamoutiMcKernelSimulationRunner
 
         r = AlamoutiMcKernelSimulationRunner(tile=16, lane=128,
-                                             num_tiles=2)
+                                             num_tiles=2, interpret=True)
         r.params.add("SNR", np.array([0.0, 10.0]))
         r.rep_max = 4
         r.batch_size = 2
@@ -189,7 +192,7 @@ class TestAlamoutiMcKernelApp:
         assert 0.008 < ber[1] < 0.030, ber
 
         r2 = AlamoutiMcKernelSimulationRunner(tile=16, lane=128,
-                                              num_tiles=2)
+                                              num_tiles=2, interpret=True)
         r2.params.add("SNR", np.array([0.0, 10.0]))
         r2.rep_max = 4
         r2.batch_size = 4

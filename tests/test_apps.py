@@ -276,14 +276,14 @@ class TestBatchedBDCapacityApp:
             assert caps[mode][1] > caps[mode][0]
 
     def test_kernel_engine_non_bench_geometry(self):
-        """The VMEM-kernel engine at a NON-bench geometry point (K=2,
-        Nr_u=2) through the runner's bulk path (CPU inject mode):
+        """The kernel engine at a NON-bench geometry point (K=2,
+        Nr_u=2) through the runner's bulk path (interpreted kernel):
         finite positive capacity, growing with the per-BS power, and
         in the same ballpark as the XLA engine at the same geometry."""
         from apps.comp_BD.batched_bd_capacity import (
             BatchedBDCapacityRunner, BDKernelCapacityRunner)
         kr = BDKernelCapacityRunner(K=2, nr_u=2, tile=8, lane=128,
-                                    num_tiles=1)
+                                    num_tiles=1, interpret=True)
         kr.params.add("Pu_dB", np.array([-5.0, 10.0]))
         kr.params.set_unpack_parameter("Pu_dB")
         kr.rep_max = 2

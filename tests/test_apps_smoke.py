@@ -90,17 +90,13 @@ class TestOfdmApps:
         assert ber[1] < ber[0]
 
     def test_ofdm_mc_kernel_runner(self):
-        # the Pallas bulk-kernel app (CPU interpreter path: host bits)
+        # the bulk-path app: the fused chain self-batched over attempts
         from apps.ofdm.ofdm_mc_kernel import OfdmMcKernelSimulationRunner
-        r = OfdmMcKernelSimulationRunner()
+        r = OfdmMcKernelSimulationRunner(ofdm_symbols=32)
         r.params.add("SNR", np.array([10.0, 25.0]))
         r.params.set_unpack_parameter("SNR")
         r.rep_max = 4
         r.batch_size = 2
-        r.tile = 16
-        r.num_tiles = 2
-        from pyphysim_tpu.ops.mc_pallas import MonteCarloOfdmTdl
-        r.mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=r.tile)
         r.update_progress_function_style = None
         r.simulate()
         ber = [float(b) for b in r.results.get_result_values_list("ber")]

@@ -1,5 +1,6 @@
 """Tests for the BD CoMP capacity Pallas kernel (ops/bd_pallas.py):
-channel bits are injectable, so the CPU interpreter pins the full
+channel bits come from the counter-based generator, so the tests draw
+the same bits, and the CPU interpreter pins the full
 bit->capacity pipeline against the (already host-pinned) XLA chain
 ``comm/batched.bd_precoders_batched`` + normalized water-filling on
 IDENTICAL channel realizations (the bench's bd_step semantics)."""
@@ -13,15 +14,25 @@ from scipy.special import erfinv
 from pyphysim_tpu.comm import bd_precoders_batched
 from pyphysim_tpu.ops import cplx
 from pyphysim_tpu.ops.bd_pallas import MonteCarloBD
-from pyphysim_tpu.ops.mc_pallas import _u11
+from pyphysim_tpu.ops.counter_rng import channel_planes, u11
 
 CLIP = 0.99999994
 
 
-def _draw_bits(key, mc, reps, num_tiles):
-    return jax.random.bits(
-        key, (reps, num_tiles * mc._tile, mc.num_planes * mc._lane),
-        jnp.uint32)
+def _draw_bits(seed, mc, reps, num_tiles, start=0):
+    """The kernel's channel bits for ``reps`` repetitions, laid out as
+    ``(reps, num_tiles * tile, num_planes * lane)`` with plane i at lanes
+    [i*lane, (i+1)*lane): the words ``channel_planes`` draws for the
+    absolute element ``row * lane + l`` of each repetition."""
+    rows = num_tiles * mc._tile
+    elem = (jnp.arange(rows, dtype=jnp.uint32)[:, None] * mc._lane +
+            jnp.arange(mc._lane, dtype=jnp.uint32)[None, :])
+    out = []
+    for r in range(reps):
+        planes = channel_planes(np.uint32(seed), np.uint32(start + r),
+                                elem, mc.num_planes // 2)
+        out.append(jnp.concatenate(planes, axis=1))
+    return jnp.stack(out)
 
 
 def _channels_from_bits(mc, ch_bits):
@@ -32,7 +43,7 @@ def _channels_from_bits(mc, ch_bits):
     planes = bits.reshape(reps, rows, mc.num_planes, lane)
 
     def gauss(b):
-        return erfinv(np.clip(np.asarray(_u11(b)), -CLIP, CLIP))
+        return erfinv(np.clip(np.asarray(u11(b)), -CLIP, CLIP))
 
     H = np.zeros((reps, rows, lane, nt, nt), np.complex64)
     idx = 0
@@ -64,7 +75,7 @@ _DIRECT_CACHE = {}
 def _direct_caps(mc, bits, noise_var):
     """Kernel math as a plain jitted jax function with noise_var
     TRACED — one XLA:CPU compile per kernel shape for the module (the
-    pallas plumbing is covered by test_inject_plumbing)."""
+    pallas_call plumbing is covered by test_inject_plumbing)."""
     lane = mc._lane
     num_planes = mc.num_planes
     reps, rows, _ = bits.shape
@@ -88,23 +99,22 @@ def _direct_caps(mc, bits, noise_var):
 
 
 class TestInjectMatchesXlaChain:
-    @pytest.mark.heavy  # ~25 s of interpreter; the IDENTICAL inject
-    # plumbing pattern (one tensor, per-plane lane slicing) is covered
-    # by default in test_ia_pallas.py::test_inject_plumbing, and the
-    # TPU-PRNG build() path runs on hardware in every bench
+    @pytest.mark.heavy  # ~25 s of interpreter; the same generator
+    # plumbing is covered by default in
+    # test_ia_pallas.py::test_inject_plumbing
     def test_inject_plumbing(self):
-        """The pallas_call inject wrapper reproduces the direct
-        _solve_block math (one small interpreter run)."""
+        """The interpreted kernel draws exactly the documented generator
+        bits and reproduces the direct _solve_block math on them."""
         mc = MonteCarloBD(tile=8, lane=128)
-        bits = _draw_bits(jax.random.PRNGKey(9), mc, 1, 1)
-        got = np.asarray(mc.build_inject(1, 1)(bits))
+        bits = _draw_bits(9, mc, 1, 1)
+        got = np.asarray(mc.build(1, 1, interpret=True)(jnp.int32(9)))
         want, _ = _direct_caps(mc, bits, 1.0)
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
     def test_capacity_matches_xla_chain_per_batch(self):
         mc = MonteCarloBD(tile=8, lane=128)
         reps, nt = 1, 1
-        bits = _draw_bits(jax.random.PRNGKey(0), mc, reps, nt)
+        bits = _draw_bits(0, mc, reps, nt)
         got, _ = _direct_caps(mc, bits, 1.0)
 
         H = _channels_from_bits(mc, bits)
@@ -119,7 +129,7 @@ class TestInjectMatchesXlaChain:
         budget: capacity computed with the FULL per-BS budget on every
         stream upper-bounds the kernel's."""
         mc = MonteCarloBD(tile=8, lane=128)
-        bits = _draw_bits(jax.random.PRNGKey(2), mc, 1, 1)
+        bits = _draw_bits(2, mc, 1, 1)
         got = float(_direct_caps(mc, bits, 1.0)[0].sum())
         H = _channels_from_bits(mc, bits)
 
@@ -134,7 +144,7 @@ class TestInjectMatchesXlaChain:
 
     def test_noise_var_monotonicity(self):
         mc = MonteCarloBD(tile=8, lane=128)
-        bits = _draw_bits(jax.random.PRNGKey(3), mc, 1, 1)
+        bits = _draw_bits(3, mc, 1, 1)
         lo = float(_direct_caps(mc, bits, 0.5)[0].sum())
         hi = float(_direct_caps(mc, bits, 2.0)[0].sum())
         assert hi < lo
@@ -143,7 +153,7 @@ class TestInjectMatchesXlaChain:
         """The noise_var knob is consistent end to end (water level AND
         per-stream SNR): kernel == XLA chain at noise_var != 1."""
         mc = MonteCarloBD(tile=8, lane=128, K=2, Nr_u=1)
-        bits = _draw_bits(jax.random.PRNGKey(6), mc, 1, 1)
+        bits = _draw_bits(6, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, 0.3)
         H = _channels_from_bits(mc, bits)
         caps = _xla_caps(H, noise_var=0.3, K=2).reshape(
@@ -160,7 +170,7 @@ class TestGeometryMenu:
     @pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (4, 1)])
     def test_capacity_matches_xla_chain(self, K, NR):
         mc = MonteCarloBD(tile=8, lane=128, K=K, Nr_u=NR)
-        bits = _draw_bits(jax.random.PRNGKey(10 * K + NR), mc, 1, 1)
+        bits = _draw_bits(10 * K + NR, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, 1.0)
         H = _channels_from_bits(mc, bits)
         caps = _xla_caps(H, K=K).reshape(1, 1, mc._tile * mc._lane)
@@ -171,7 +181,7 @@ class TestGeometryMenu:
     @pytest.mark.heavy  # largest geometry: NT=8, 128 bit planes
     def test_capacity_matches_xla_chain_4x2(self):
         mc = MonteCarloBD(tile=8, lane=128, K=4, Nr_u=2)
-        bits = _draw_bits(jax.random.PRNGKey(42), mc, 1, 1)
+        bits = _draw_bits(42, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, 1.0)
         H = _channels_from_bits(mc, bits)
         caps = _xla_caps(H, K=4).reshape(1, 1, mc._tile * mc._lane)
@@ -187,7 +197,7 @@ class TestModeMenu:
     @pytest.mark.parametrize("mode", ["global", "none"])
     def test_capacity_matches_xla_chain(self, mode):
         mc = MonteCarloBD(tile=8, lane=128, K=2, Nr_u=2, mode=mode)
-        bits = _draw_bits(jax.random.PRNGKey(60), mc, 1, 1)
+        bits = _draw_bits(60, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, 1.0)
         H = _channels_from_bits(mc, bits)
         caps = _xla_caps(H, K=2, mode=mode).reshape(
@@ -202,7 +212,7 @@ class TestModeMenu:
         for mode in ("global", "normalized", "none"):
             mc = MonteCarloBD(tile=8, lane=128, K=2, Nr_u=2, mode=mode)
             if bits is None:
-                bits = _draw_bits(jax.random.PRNGKey(61), mc, 1, 1)
+                bits = _draw_bits(61, mc, 1, 1)
             caps[mode] = float(_direct_caps(mc, bits, 1.0)[0].sum())
         assert caps["global"] >= caps["normalized"] > 0
         assert caps["none"] > 0
@@ -217,8 +227,7 @@ class TestShardedInject:
         from pyphysim_tpu.parallel import make_mesh
         mc = MonteCarloBD(tile=8, lane=128, K=2, Nr_u=1)
         reps, nt = 8, 1
-        bits = _draw_bits(jax.random.PRNGKey(11), mc, reps, nt)
-        one = np.asarray(mc.build_inject(reps, nt)(bits))
-        sharded = np.asarray(
-            mc.build_inject(reps, nt, mesh=make_mesh(8))(bits))
+        one = np.asarray(mc.build(reps, nt, interpret=True)(jnp.int32(11)))
+        sharded = np.asarray(mc.build(reps, nt, mesh=make_mesh(8),
+                                      interpret=True)(jnp.int32(11)))
         assert np.array_equal(one, sharded), (one, sharded)

@@ -1,6 +1,6 @@
 """Tests for the real-pair complex core (ops/cplx.py, ops/fft.py) — the
 foundation every other layer builds on. Checked against numpy complex
-arithmetic on CPU; identical code runs on the TPU backend (which has no
+arithmetic on CPU; identical code runs on the accelerator (the device code path uses no
 complex dtypes)."""
 
 import jax

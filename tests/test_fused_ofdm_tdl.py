@@ -26,6 +26,20 @@ def _setup(fft_size=256, cp_size=48, num_used=192, n_sym=6):
 
 
 class TestFusedExactness:
+    @pytest.mark.parametrize("mode", ["diag", "spectrum"])
+    def test_cached_constants_survive_retracing(self, mode):
+        """The per-dtype transform cache holds host constants: the same
+        op traced by two separate jits (one per SNR point in the runner)
+        must not leak the first trace's values into the second."""
+        qam, ofdm, channel, n = _setup()
+        fop = FusedOfdmTdl(ofdm, channel, mode=mode)
+        tx = qam.modulate(random_symbols(jax.random.PRNGKey(1), n, qam.K))
+        state = channel.init_state(jax.random.PRNGKey(2))
+        outs = [jax.jit(lambda t, g=g: fop.corrupt_and_demodulate(
+            state, t)[0].re * g)(tx) for g in (1.0, 2.0)]
+        np.testing.assert_allclose(2 * np.asarray(outs[0]),
+                                   np.asarray(outs[1]), rtol=1e-6)
+
     def test_matches_time_domain_chain(self):
         qam, ofdm, channel, n = _setup()
         key = jax.random.PRNGKey(0)

@@ -1,6 +1,7 @@
 """Tests for the Max-SINR IA Pallas kernel (ops/ia_pallas.py): the
-channel bits are injectable, so the CPU interpreter pins the full
-bit->capacity pipeline against the (already host-pinned) XLA solver
+channel bits come from the counter-based generator, so the tests draw
+the same bits, and the CPU interpreter pins the full bit->capacity
+pipeline against the (already host-pinned) XLA solver
 ``ia/batched.max_sinr_solve`` on IDENTICAL channel realizations."""
 
 import jax
@@ -12,15 +13,25 @@ from scipy.special import erfinv
 from pyphysim_tpu.ia.batched import calc_sinrs, max_sinr_solve, sum_capacity
 from pyphysim_tpu.ops import cplx
 from pyphysim_tpu.ops.ia_pallas import MonteCarloMaxSinr
-from pyphysim_tpu.ops.mc_pallas import _u11
+from pyphysim_tpu.ops.counter_rng import channel_planes, u11
 
 CLIP = 0.99999994
 
 
-def _draw_bits(key, mc, reps, num_tiles):
-    return jax.random.bits(
-        key, (reps, num_tiles * mc._tile, mc.num_planes * mc._lane),
-        jnp.uint32)
+def _draw_bits(seed, mc, reps, num_tiles, start=0):
+    """The kernel's channel bits for ``reps`` repetitions, laid out as
+    ``(reps, num_tiles * tile, num_planes * lane)`` with plane i at lanes
+    [i*lane, (i+1)*lane): the words ``channel_planes`` draws for the
+    absolute element ``row * lane + l`` of each repetition."""
+    rows = num_tiles * mc._tile
+    elem = (jnp.arange(rows, dtype=jnp.uint32)[:, None] * mc._lane +
+            jnp.arange(mc._lane, dtype=jnp.uint32)[None, :])
+    out = []
+    for r in range(reps):
+        planes = channel_planes(np.uint32(seed), np.uint32(start + r),
+                                elem, mc.num_planes // 2)
+        out.append(jnp.concatenate(planes, axis=1))
+    return jnp.stack(out)
 
 
 def _channels_from_bits(mc, ch_bits):
@@ -33,7 +44,7 @@ def _channels_from_bits(mc, ch_bits):
     planes = bits.reshape(reps, rows, mc.num_planes, lane)
 
     def gauss(b):
-        return erfinv(np.clip(np.asarray(_u11(b)), -CLIP, CLIP))
+        return erfinv(np.clip(np.asarray(u11(b)), -CLIP, CLIP))
 
     H = np.zeros((reps, rows, lane, K, K, N, N), np.complex64)
     idx = 0
@@ -51,9 +62,9 @@ _DIRECT_CACHE = {}
 
 
 def _direct_caps(mc, bits, noise_var):
-    """Run the kernel math as a plain jitted jax function (the inject
-    pallas_call is a thin plane-slicing wrapper around _solve_block;
-    its BlockSpec plumbing is covered by test_inject_plumbing).
+    """Run the kernel math as a plain jitted jax function (the
+    pallas_call is a thin bit-drawing wrapper around _solve_block; its
+    plumbing is covered by test_inject_plumbing).
     noise_var is TRACED and the jitted program cached per kernel
     shape, so the XLA:CPU compile of the unrolled recursion is paid
     once per (tile, lane, iterations) across the whole module."""
@@ -82,11 +93,11 @@ def _direct_caps(mc, bits, noise_var):
 
 class TestInjectMatchesXlaSolver:
     def test_inject_plumbing(self):
-        """The pallas_call inject wrapper reproduces the direct
-        _solve_block math (one small interpreter run)."""
+        """The interpreted kernel draws exactly the documented generator
+        bits and reproduces the direct _solve_block math on them."""
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=1)
-        bits = _draw_bits(jax.random.PRNGKey(9), mc, 1, 1)
-        got = np.asarray(mc.build_inject(1, 1)(bits, 0.1))
+        bits = _draw_bits(9, mc, 1, 1)
+        got = np.asarray(mc.build(1, 1, interpret=True)(jnp.int32(9), 0.1))
         want, _ = _direct_caps(mc, bits, 0.1)
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
@@ -99,7 +110,7 @@ class TestInjectMatchesXlaSolver:
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=4)
         reps, nt = 1, 1
         noise_var = 0.1
-        bits = _draw_bits(jax.random.PRNGKey(0), mc, reps, nt)
+        bits = _draw_bits(0, mc, reps, nt)
         got, _ = _direct_caps(mc, bits, noise_var)
 
         H = _channels_from_bits(mc, bits)
@@ -122,7 +133,7 @@ class TestInjectMatchesXlaSolver:
     def test_noise_var_monotonicity(self):
         """More noise -> less capacity, through the whole kernel."""
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=4)
-        bits = _draw_bits(jax.random.PRNGKey(3), mc, 1, 1)
+        bits = _draw_bits(3, mc, 1, 1)
         lo = float(_direct_caps(mc, bits, 0.05)[0].sum())
         hi = float(_direct_caps(mc, bits, 0.5)[0].sum())
         assert hi < lo
@@ -131,7 +142,7 @@ class TestInjectMatchesXlaSolver:
         """The recursion converges: 4 iterations beat 1 on average."""
         mc1 = MonteCarloMaxSinr(tile=8, lane=128, iterations=1)
         mc4 = MonteCarloMaxSinr(tile=8, lane=128, iterations=4)
-        bits = _draw_bits(jax.random.PRNGKey(5), mc1, 1, 1)
+        bits = _draw_bits(5, mc1, 1, 1)
         c1 = float(_direct_caps(mc1, bits, 0.1)[0].sum())
         c4 = float(_direct_caps(mc4, bits, 0.1)[0].sum())
         assert c4 > c1
@@ -149,7 +160,7 @@ class TestGeometryMenu:
     def test_capacity_matches_xla_solver(self, K):
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=1, K=K)
         noise_var = 0.1
-        bits = _draw_bits(jax.random.PRNGKey(20 + K), mc, 1, 1)
+        bits = _draw_bits(20 + K, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, noise_var)
 
         H = _channels_from_bits(mc, bits)
@@ -206,8 +217,7 @@ class TestAntennaStreamMenu:
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=2, K=K,
                                N=N, Ns=Ns, init_iters=4)
         noise_var = 0.1
-        bits = _draw_bits(jax.random.PRNGKey(100 + 10 * K + Ns),
-                          mc, 1, 1)
+        bits = _draw_bits(100 + 10 * K + Ns, mc, 1, 1)
         got, _ = _direct_caps(mc, bits, noise_var)
 
         H = _channels_from_bits(mc, bits)          # (B, K, K, N, N)
@@ -242,10 +252,10 @@ class TestShardedInject:
         from pyphysim_tpu.parallel import make_mesh
         mc = MonteCarloMaxSinr(tile=8, lane=128, iterations=1, K=2)
         reps, nt = 8, 1
-        bits = _draw_bits(jax.random.PRNGKey(31), mc, reps, nt)
-        one = np.asarray(mc.build_inject(reps, nt)(bits, 0.1))
-        sharded = np.asarray(
-            mc.build_inject(reps, nt, mesh=make_mesh(8))(bits, 0.1))
+        one = np.asarray(mc.build(reps, nt, interpret=True)(
+            jnp.int32(31), 0.1))
+        sharded = np.asarray(mc.build(reps, nt, mesh=make_mesh(8),
+                                      interpret=True)(jnp.int32(31), 0.1))
         assert np.array_equal(one, sharded), (one, sharded)
 
 
@@ -262,7 +272,8 @@ class TestIaMcKernelApp:
 
         def make(batch):
             r = IaMcKernelSimulationRunner(K=2, tile=8, lane=128,
-                                           num_tiles=1, iterations=1)
+                                           num_tiles=1, iterations=1,
+                                           interpret=True)
             r.params.add("SNR", np.array([0.0, 15.0]))
             r.rep_max = 4
             r.batch_size = batch

@@ -1,4 +1,4 @@
-"""Tests for mesh-sharded Monte Carlo execution — the TPU-native
+"""Tests for mesh-sharded Monte Carlo execution — the device-native
 replacement of the reference's ipyparallel path, validated on the virtual
 8-device CPU mesh (SURVEY §4: 'run the pjit program on a mocked/CPU
 mesh')."""
@@ -121,7 +121,7 @@ class TestGraftDryrun:
             cwd=repo, env=env, capture_output=True, text=True,
             timeout=1500)
         assert r.returncode == 0, f"\n{r.stdout}\n{r.stderr}"
-        assert "2-process (Gloo DCN) runner sweep" in r.stdout, r.stdout
+        assert "2-process (Gloo) runner sweep" in r.stdout, r.stdout
 
     def test_dryrun_multichip_2(self, monkeypatch):
         import __graft_entry__ as g
@@ -222,9 +222,8 @@ class TestWeakScalingShape:
         compiled SPMD program's per-partition FLOPs stay constant as
         the mesh grows 1 -> 8 devices — the work divides evenly and
         the counter reduction adds no per-device replication blowup
-        (the shape behind docs/tpu_performance.md's 'linear until
-        dispatch-bound' claim; measured curve: bin/weak_scaling_curve
-        .py). Wall-clock flatness is NOT asserted — the virtual
+        (the shape behind the 'linear until dispatch-bound' scaling
+        claim; measured curve: bin/weak_scaling_curve.py). Wall-clock flatness is NOT asserted — the virtual
         devices share this host's two cores."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 

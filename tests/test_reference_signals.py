@@ -205,7 +205,7 @@ class TestLsMmseEstimators:
 
 class TestEstimatorsDevicePath:
     """The CArray device path of the LS/MMSE estimators (works inside
-    jit on the complex-free TPU backend), cross-checked against the
+    jit on the complex-free device path), cross-checked against the
     numpy host path on identical realizations (VERDICT r4 item 5;
     reference channel_estimation/estimators.py:12-213)."""
 

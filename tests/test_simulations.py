@@ -356,7 +356,7 @@ class _DummyRunnerWithSkip(_DummyRunner):
 
 
 class _DummyBatchRunner(SimulationRunner):
-    """TPU batch-path runner: same analytic result via a jitted kernel."""
+    """device batch-path runner: same analytic result via a jitted kernel."""
 
     def __init__(self):
         super().__init__(read_command_line_args=False)
@@ -700,7 +700,7 @@ class TestEndToEndQpskAwgn:
 
 
 # ---------------------------------------------------------------------------
-# Masked skip (SkipThisOne semantics on the TPU batch path)
+# Masked skip (SkipThisOne semantics on the device batch path)
 # ---------------------------------------------------------------------------
 
 
